@@ -21,12 +21,28 @@ Phases (any failure exits nonzero before the last line):
    granite-8b ``decode_speedup(batch=1)``.  Each part's wall time ends in
    ``torch.cuda.synchronize()``.
 5. The kernel's time at the main path's own launches, beside its bound.
+6. The four PIM-tile GEMV/GEMM kernels against their plain torch
+   versions on the card, on the operands ``pim_linear`` hands them:
+   fuzzed and ragged shapes, all 7 dtypes, batch 1 (GEMV) and 1, 3, 8,
+   9 (GEMM); int4 nibbles and int8/int16 extremes, the int32-wraparound
+   case, fp8 NaN and saturation, and misaligned views (the byte-wise
+   path).  Int outputs must be bit-equal; fp outputs within
+   ``2 W 2**-24 sum|w x|`` per output, the bound of an f32 sum.
+7. ``granite_8b_linear``, the quantized-linear path at full width, with
+   the kernels' launch counts at 0: one granite-8b layer plus
+   ``lm_head`` (8 sites), each weight prepared on the card for all 7
+   dtypes and run at batch 1 and 8, must reproduce
+   ``tests/golden/torch_pim_linear.json`` (computed by the JAX package).
+   Then each kernel's time at ``lm_head``, beside its bound, its plain
+   version and, where one exists, one PyTorch call of the same function.
 
-The second-to-last line is the ``kernels`` JSON record; the last is
-``{"ok": true, "device": {...}}``.
+The second-to-last line is the ``kernels`` JSON record (all five
+kernels); the last is ``{"ok": true, "device": {...}}``.
 """
+import hashlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -36,6 +52,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate
+# H100 SXM dense tensor-core peaks: int8 and fp8, and bf16 (an int16
+# activation counts as two int8 halves, so A16 paths take the bf16 rate).
+PEAK_OPS_8BIT = 1979e12
+PEAK_OPS_16BIT = 989e12
 CHAIN_CYCLES_PER_STEP = 32         # 8 dependent int ops x ~4 cycles
 
 
@@ -55,6 +75,112 @@ def smi(query: str) -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
+def site_inputs(seed: int, index: int, h: int, w: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Inputs of one site of ``tests/golden/torch_pim_linear.json``
+    (float32): weights ``(h, w)`` drawn N(0, 1) x 0.02 and activations
+    ``(8, w)`` drawn N(0, 1); batch 1 takes row 0 as a 1-D ``x``."""
+    wts = (np.random.default_rng([seed, index])
+           .standard_normal((h, w), dtype=np.float32) * np.float32(0.02))
+    acts = np.random.default_rng([seed, index, 1]).standard_normal(
+        (8, w), dtype=np.float32)
+    return wts, acts
+
+
+def sample_index(n: int, k: int = 64) -> np.ndarray:
+    """``k`` evenly strided flat positions of an output of ``n`` values."""
+    return np.unique(np.linspace(0, n - 1, k).round().astype(np.int64))
+
+
+def fixture_mismatch(entry: dict, y: np.ndarray, rel_tol: float):
+    """Why the float32 output ``y`` does not reproduce one entry of
+    ``torch_pim_linear.json`` (a message), or None when it does.
+
+    Int entries pin the sha256 of the output's bytes.  Fp entries pin a
+    strided sample, the sum and the largest magnitude, each within
+    ``rel_tol`` times the matching sum of |w * x| (float32 sums taken in
+    another order differ by far less; a wrong or missing product by
+    more)."""
+    y = np.ascontiguousarray(y, dtype=np.float32)
+    if "sha256" in entry:
+        got = hashlib.sha256(y.tobytes()).hexdigest()
+        return (None if got == entry["sha256"]
+                else f"sha256 {got[:16]} != {entry['sha256'][:16]}")
+    flat = y.reshape(-1).astype(np.float64)
+    idx = np.asarray(entry["idx"])
+    off = np.abs(flat[idx] - np.asarray(entry["y"]))
+    lim = rel_tol * np.asarray(entry["abs_sum"])
+    if not (off <= lim).all():
+        k = int(np.argmax(np.where(off <= lim, -np.inf, off / lim)))
+        return (f"output {int(idx[k])}: {flat[idx[k]]!r} vs "
+                f"{entry['y'][k]!r} (limit {lim[k]:.3g})")
+    if not abs(flat.sum() - entry["sum"]) <= rel_tol * entry["total_abs"]:
+        return f"sum {flat.sum()!r} vs {entry['sum']!r}"
+    if not (abs(np.abs(flat).max() - entry["max_abs"])
+            <= rel_tol * entry["max_abs_sum"]):
+        return f"max |y| {np.abs(flat).max()!r} vs {entry['max_abs']!r}"
+    return None
+
+
+# The PIM-tile kernels: wrapper name -> (the TPU kernel it replaces, source).
+PIM_KERNELS = {
+    "pim_gemv_int": ("src/repro/kernels/pim_gemv.py:37",
+                     "src/repro_torch/kernels/csrc/pim_gemv.cu"),
+    "pim_gemv_fp": ("src/repro/kernels/pim_gemv.py:63",
+                    "src/repro_torch/kernels/csrc/pim_gemv.cu"),
+    "pim_gemm_int": ("src/repro/kernels/pim_gemm.py:22",
+                     "src/repro_torch/kernels/csrc/pim_gemm.cu"),
+    "pim_gemm_fp": ("src/repro/kernels/pim_gemm.py:46",
+                    "src/repro_torch/kernels/csrc/pim_gemm.cu"),
+}
+
+
+def patch_pim_kernels(mods: dict, on_call) -> dict:
+    """Route every call of the four wrappers (as ``pim_linear`` makes
+    them) through ``on_call(name, out, args, kw)`` after the real call;
+    returns the real wrappers, for :func:`restore_pim_kernels`."""
+    real = {name: getattr(mod, name) for name, mod in mods.items()}
+    for name, mod in mods.items():
+        def call(*args, _name=name, **kw):
+            out = real[_name](*args, **kw)
+            on_call(_name, out, args, kw)
+            return out
+        setattr(mod, name, call)
+    return real
+
+
+def restore_pim_kernels(mods: dict, real: dict) -> None:
+    for name, mod in mods.items():
+        setattr(mod, name, real[name])
+
+
+def pim_error(name: str, out: torch.Tensor, want: torch.Tensor,
+              args: tuple) -> float:
+    """Hold a kernel's output to its plain version's; the largest finite
+    difference.  Int: bit-equal.  Fp: NaN in the same places, and every
+    other output within ``2 W 2**-24 sum|w x|`` (two float32 sums of the
+    same exact products, in different orders)."""
+    if name.endswith("_int"):
+        check(torch.equal(out, want),
+              f"{name} != plain on {tuple(args[0].shape)} x "
+              f"{tuple(args[1].shape)} {args[1].dtype}")
+        return 0.0
+    w8, x = args[0], args[1]
+    wa, xa = w8.float().abs(), x.float().abs()
+    lim = 2 * w8.shape[1] * 2.0 ** -24 * (wa @ xa if x.dim() == 1
+                                          else xa @ wa.T)
+    nan = want.isnan()
+    check(torch.equal(out.isnan(), nan),
+          f"{name}: NaN positions differ from plain")
+    diff = (out - want).abs()
+    ok = (out == want) | (diff <= lim) | nan
+    check(bool(ok.all()), f"{name}: {int((~ok).sum())} outputs off plain "
+          f"beyond the f32 sum bound on {tuple(w8.shape)} x "
+          f"{tuple(x.shape)} {x.dtype}")
+    finite = torch.isfinite(want)
+    return float(diff[finite].max()) if bool(finite.any()) else 0.0
+
+
 def elapsed_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` runs (CUDA events)."""
     fn()                                            # warm-up
@@ -67,6 +193,196 @@ def elapsed_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def pim_kernels_vs_plain(dev, mods: dict, plain: dict) -> dict:
+    """Phase 6: the four kernels against their plain versions on the
+    card; returns each kernel's largest difference."""
+    from repro_torch.kernels import ops, pim_gemm, pim_gemv, ref
+    from repro_torch.pimkernel.tileconfig import ALL_DTYPES
+
+    worst = {name: 0.0 for name in mods}
+    held = {name: 0 for name in mods}
+
+    def hold(name, out, args, kw):
+        want = plain[name](*args, **kw)
+        worst[name] = max(worst[name], pim_error(name, out, want, args))
+        held[name] += 1
+
+    real = patch_pim_kernels(mods, hold)
+    rng = np.random.default_rng(6)
+    dev_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    # Fuzzed and ragged shapes through pim_linear, all dtypes: row bytes
+    # that are and are not multiples of 16 (vector and byte-wise paths).
+    for h, w in ((1, 32), (7, 16), (130, 258), (37, 1000), (256, 4096),
+                 (1023, 2050), (64, 4128), (300, 96)):
+        wf = rng.standard_normal((h, w)) * rng.uniform(0.01, 3.0)
+        xf = rng.standard_normal((9, w)) * rng.uniform(0.1, 10.0)
+        xf[2, ::97] *= 60.0        # one row with outliers: fp8 NaN there
+        wd, xd = dev_t(wf.astype(np.float32)), dev_t(xf.astype(np.float32))
+        for dtype in ALL_DTYPES:
+            qw = ops.prepare_weights(wd, dtype, device=dev)
+            ops.pim_linear(xd[0], qw)
+            for b in (1, 3, 8, 9):
+                ops.pim_linear(xd[:b], qw)
+
+    # Every int4 nibble / int8 byte in every row, against int8 and int16
+    # extremes; then the same operands as misaligned views (byte-wise).
+    wq = torch.stack([torch.randperm(256) for _ in range(16)]) - 128
+    wq = wq.to(torch.int8).to(dev)
+    ws = dev_t(rng.uniform(0.5, 2.0, 16).astype(np.float32))
+    for w_bits in (8, 4):
+        width = 256 * (2 if w_bits == 4 else 1)
+        for xdt, lo, hi in ((np.int8, -128, 128), (np.int16, -32768, 32768)):
+            xb = rng.integers(lo, hi, size=(9, width))
+            xb[:, :4] = [lo, hi - 1, -1, 0]
+            xb = dev_t(xb.astype(xdt))
+            for wop, xop in ((wq, xb),
+                             (misaligned(wq), misaligned(xb))):
+                pim_gemv.pim_gemv_int(wop, xop[0].contiguous(), ws, 0.37,
+                                      w_bits=w_bits)
+                pim_gemm.pim_gemm_int(wop, xop, ws, 0.37, w_bits=w_bits)
+    w8 = ref.to_e4m3fn(dev_t(rng.standard_normal((48, 200))
+                             .astype(np.float32)))
+    for xdt in (torch.float8_e4m3fn, torch.bfloat16):
+        xb = dev_t(rng.standard_normal((5, 200)).astype(np.float32))
+        xb = ref.to_e4m3fn(xb) if xdt == torch.float8_e4m3fn else xb.to(xdt)
+        pim_gemv.pim_gemv_fp(misaligned(w8), misaligned(xb)[1].contiguous())
+        pim_gemm.pim_gemm_fp(misaligned(w8), misaligned(xb))
+
+    # The int32 wraparound: 127 * 32767 * 16384 through pim_linear.
+    qw = ops.prepare_weights(torch.full((8, 16384), 0.5, device=dev),
+                             "W8A16", device=dev)
+    x = torch.full((16384,), 3.0, device=dev)
+    y = ops.pim_linear(x, qw)
+    ws = pim_gemv.row_scale(qw.scale, ref.quantize_acts(x, 16)[1])
+    check(torch.equal(y, torch.tensor(-538951680.0, device=dev) * ws),
+          f"int32 wraparound: {y[:2].tolist()}")
+
+    # fp8 saturation and NaN: weights at +-448 and past the range,
+    # activations at 448, 464 (-> 448), 464.01 and 1000 (-> NaN), inf, NaN.
+    wf = rng.standard_normal((40, 64)).astype(np.float32)
+    wf[:, 0], wf[3], wf[5, 1] = 448.0, -448.0, 1000.0
+    xf = rng.standard_normal((6, 64)).astype(np.float32)
+    xf[1, 2], xf[2, 3], xf[3, 4] = 464.0, 464.01, -1000.0
+    xf[4, 5], xf[5, 6], xf[1, 7] = np.inf, np.nan, 448.0
+    for dtype in ("FP_W8A8", "FP_W8A16"):
+        qw = ops.prepare_weights(dev_t(wf), dtype, device=dev)
+        ops.pim_linear(dev_t(xf), qw)
+        for row in range(6):
+            ops.pim_linear(dev_t(xf[row]), qw)
+    torch.cuda.synchronize()
+    restore_pim_kernels(mods, real)
+    check(all(n > 0 for n in held.values()), f"kernels not held: {held}")
+    print(f"[6] PIM-tile kernels == plain on the card: {held} calls; "
+          f"largest fp difference {max(worst.values()):.3g} (int: exact)")
+    return worst
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary (the kernels then read it byte by byte)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
+    """Phase 7: one granite-8b layer plus lm_head at full width through
+    ``pim_linear`` on the card (launch counts from 0), held to the JAX
+    package's fixture; then each kernel's time at lm_head."""
+    from repro_torch.configs import granite_8b
+    from repro_torch.kernels import ops
+    from repro_torch.pimkernel.tileconfig import ALL_DTYPES
+    from repro_torch.serving.offload import decode_gemv_sites
+
+    sites = fixture["sites"]
+    check([(s.name, s.h, s.w) for s in decode_gemv_sites(granite_8b.CONFIG)]
+          == [(s["name"], s["h"], s["w"]) for s in sites],
+          "the fixture's sites are not granite-8b's decode GEMV sites")
+    heavy: dict = {}
+    now: dict = {}
+
+    def keep_lm_head(name, out, args, kw):
+        if now["site"] == "lm_head":
+            heavy[(name, now["dtype"])] = (out, args, kw)
+
+    real = patch_pim_kernels(mods, keep_lm_head)
+    for name, mod in mods.items():
+        mod.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    for index, site in enumerate(sites):
+        wts, acts = site_inputs(fixture["seed"], index, site["h"],
+                                site["w"])
+        wd, xd = torch.from_numpy(wts).to(dev), torch.from_numpy(acts).to(dev)
+        for dtype in ALL_DTYPES:
+            now.update(site=site["name"], dtype=dtype.name)
+            qw = ops.prepare_weights(wd, dtype, device=dev)
+            for b in (1, 8):
+                key = f"{site['name']}/{dtype.name}/b{b}"
+                y = ops.pim_linear(xd[0] if b == 1 else xd, qw)
+                msg = fixture_mismatch(fixture["results"][key],
+                                       y.cpu().numpy(), fixture["fp_rel_tol"])
+                check(msg is None, f"granite_8b_linear {key}: {msg}")
+        del wd, xd, qw
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    restore_pim_kernels(mods, real)
+    launches = {name: mod.LAUNCHES[name] for name, mod in mods.items()}
+    check(all(n > 0 for n in launches.values()),
+          f"granite_8b_linear did not launch every kernel: {launches}")
+    print(f"[7] granite_8b_linear: {len(fixture['results'])} outputs "
+          f"reproduce torch_pim_linear.json; {wall:.2f} s wall, launches "
+          f"{launches}")
+
+    timed = {}
+    for (name, dtype), (out, args, kw) in sorted(heavy.items()):
+        w_op, x_op = args[0], args[1]
+        width = x_op.shape[-1]
+        batch = 1 if x_op.dim() == 1 else x_op.shape[0]
+        err = pim_error(name, out, plain[name](*args, **kw), args)
+        ms = elapsed_ms(lambda: real[name](*args, **kw), 20)
+        plain_ms = elapsed_ms(lambda: plain[name](*args, **kw), 3)
+        nbytes = out.numel() * 4 + sum(a.numel() * a.element_size()
+                                       for a in args
+                                       if isinstance(a, torch.Tensor))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        peak = PEAK_OPS_16BIT if x_op.element_size() == 2 else PEAK_OPS_8BIT
+        ops_ms = 2 * batch * w_op.shape[0] * width / peak * 1e3
+        timed[(name, dtype)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=library_ms(dtype, w_op, x_op), max_abs_err=err,
+            batch=batch, bytes=nbytes)
+        print(f"[7] {name} lm_head {dtype} B={batch}: "
+              f"{json.dumps(timed[(name, dtype)])}")
+    return dict(wall=wall, launches=launches, timed=timed)
+
+
+def library_ms(dtype: str, w_op: torch.Tensor, x_op: torch.Tensor):
+    """One PyTorch call of the same function, timed as a yardstick (the
+    port never calls it), or None where no single call computes it:
+    ``torch._int_mm`` for W8A8 (its batch padded with zero rows to 32,
+    above its minimum of 16 and a multiple of 8) and ``torch._scaled_mm``
+    with unit scales for FP_W8A8 (batch padded to 16).  A16, W4 and
+    FP_W8A16 have no such call."""
+    xb = x_op if x_op.dim() == 2 else x_op[None]
+    if dtype == "W8A8":
+        a = torch.zeros((32, xb.shape[1]), dtype=torch.int8, device=xb.device)
+        a[: xb.shape[0]] = xb
+        return elapsed_ms(lambda: torch._int_mm(a, w_op.T), 20)
+    if dtype == "FP_W8A8":
+        a = torch.zeros((16, xb.shape[1]), dtype=torch.uint8,
+                        device=xb.device)
+        a[: xb.shape[0]] = xb.view(torch.uint8)
+        a = a.view(torch.float8_e4m3fn)
+        one = torch.ones((), device=xb.device)
+        return elapsed_ms(lambda: torch._scaled_mm(
+            a, w_op.T, scale_a=one, scale_b=one, out_dtype=torch.float32),
+            20)
+    return None
 
 
 def main() -> int:
@@ -103,9 +419,12 @@ def main() -> int:
     build.load_library()
     print(f"[1] kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.BUILD_INFO['seconds']:.2f} s)")
-    for line in build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("    ptxas:", line.strip())
+    for source, log in build.BUILD_INFO["logs"].items():
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
+        print(f"    ptxas {source}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
+              f"bytes {spills}")
 
     # ---- 2. kernel == plain on the card ---------------------------------
     rng = np.random.default_rng(0)
@@ -343,6 +662,43 @@ def main() -> int:
         print(f"[5] {p}: {json.dumps(fleets[p])}")
     del launched
 
+    # ---- 6-7. the PIM-tile quantized linear layer ------------------------
+    from repro_torch.kernels import pim_gemm, pim_gemv
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls would run in TF32: the fp plain versions need "
+          "full float32")
+    mods = {"pim_gemv_int": pim_gemv, "pim_gemv_fp": pim_gemv,
+            "pim_gemm_int": pim_gemm, "pim_gemm_fp": pim_gemm}
+    plain = {name: getattr(mod, f"{name}_plain") for name, mod in mods.items()}
+    worst_pim = pim_kernels_vs_plain(dev, mods, plain)
+    linear = granite_8b_linear(
+        dev, mods, plain,
+        json.loads((ROOT / "tests/golden/torch_pim_linear.json").read_text()))
+    headline = {"pim_gemv_int": "W8A8", "pim_gemv_fp": "FP_W8A8",
+                "pim_gemm_int": "W8A8", "pim_gemm_fp": "FP_W8A8"}
+    pim_entries = []
+    for name, (replaces, source) in PIM_KERNELS.items():
+        by_dtype = {d: t for (n, d), t in linear["timed"].items() if n == name}
+        head = by_dtype[headline[name]]
+        pim_entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": linear["launches"][name],
+            "max_abs_err": max(worst_pim[name],
+                               max(t["max_abs_err"]
+                                   for t in by_dtype.values())),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "matches_plain": True,
+            "ms_on": f"lm_head 49152x4096 {headline[name]}, batch "
+                     f"{head['batch']}, granite_8b_linear's operands",
+            "library_on": ("torch._int_mm, batch padded to 32"
+                           if name.endswith("_int")
+                           else "torch._scaled_mm, unit scales, batch "
+                                "padded to 16"),
+            "granite_8b_linear_wall_s": linear["wall"],
+            "by_dtype": by_dtype})
+
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{
         "name": "lane_scan", "route": "cuda",
@@ -356,7 +712,7 @@ def main() -> int:
         "ms_on": "granite-8b decode_speedup fleet, LRU cold",
         "plain_on": f"Fig-4 PIM 512x4096 W8A8 lanes ({steps} steps)",
         "kernel_ms_on_plain_inputs": short_kernel_ms,
-        "fleets": fleets}]}
+        "fleets": fleets}, *pim_entries]}
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

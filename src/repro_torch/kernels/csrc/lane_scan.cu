@@ -297,8 +297,4 @@ int lane_scan_launch(const int32_t* cycs, const int32_t* streams,
   }
 }
 
-const char* lane_scan_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"

@@ -1,0 +1,327 @@
+// Device code shared by the PIM-tile GEMV and GEMM kernels (pim_gemv.cu,
+// pim_gemm.cu): how one warp takes the dot products of one weight row
+// with up to NB activation rows.
+//
+// Layout: weights are row-major (H, row_bytes); int4 rows hold two signed
+// nibbles per byte, the low nibble being the even column.  Activations
+// are row-major (B, W).  A warp walks its weight row in 16-byte chunks,
+// lane-strided, kUnroll chunks in flight per lane; each chunk is decoded
+// once in registers and multiplied against every activation row.
+//
+// Numerics (held bit for bit to the JAX package's Pallas kernels):
+// * int: every product is an exact int; a chunk's partial sum fits in
+//   int32 (at most 32 products of |w| <= 128 and |x| <= 32768, < 2^27);
+//   the running sum is uint32_t, so it wraps mod 2^32 as the TPU's int32
+//   accumulator does, with no signed overflow, and any summation order
+//   gives the same bits.
+// * fp: fp8 x fp8 and fp8 x bf16 products are exact in float32 (at most
+//   4 + 8 significant bits), so fmaf adds exact products; only the order
+//   of the float32 sums differs from other implementations.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace pim {
+
+constexpr int kWarp = 32;
+constexpr int kRowsPerBlock = 8;             // one warp per weight row
+constexpr int kThreads = kWarp * kRowsPerBlock;
+constexpr int kUnroll = 4;                   // 16-byte loads in flight/lane
+constexpr int kBatchTile = 8;                // GEMM rows per warp pass
+
+// ---- element decoding ----------------------------------------------------
+
+__device__ __forceinline__ int s8(uint32_t word, int byte) {
+  return static_cast<int8_t>((word >> (8 * byte)) & 0xFFu);
+}
+
+__device__ __forceinline__ int s16(uint32_t word, int half) {
+  return static_cast<int16_t>((word >> (16 * half)) & 0xFFFFu);
+}
+
+// Signed nibbles of one byte: (int8_t)(b << 4) >> 4 and (int8_t)b >> 4.
+__device__ __forceinline__ int nib_lo(uint32_t b) {
+  return static_cast<int8_t>(static_cast<uint8_t>(b << 4)) >> 4;
+}
+__device__ __forceinline__ int nib_hi(uint32_t b) {
+  return static_cast<int8_t>(static_cast<uint8_t>(b)) >> 4;
+}
+
+// Four packed int4 weights' low / high nibbles as four sign-extended
+// int8 lanes each ((v ^ 8) - 8 per byte, no borrow between bytes).
+__device__ __forceinline__ int nibs_lo4(uint32_t w) {
+  return static_cast<int>(__vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u,
+                                  0x08080808u));
+}
+__device__ __forceinline__ int nibs_hi4(uint32_t w) {
+  return static_cast<int>(__vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
+                                  0x08080808u));
+}
+
+__device__ __forceinline__ float e4m3(uint32_t byte) {
+  const __half_raw h = __nv_cvt_fp8_to_halfraw(
+      static_cast<__nv_fp8_storage_t>(byte & 0xFFu), __NV_E4M3);
+  return __half2float(__half(h));
+}
+
+// Two e4m3 values in the low 16 bits (the low byte first).
+__device__ __forceinline__ float2 e4m3x2(uint32_t pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+
+// bf16 -> float is exact: the bf16 bits are the float's top half.
+__device__ __forceinline__ float bf16_lo(uint32_t word) {
+  return __uint_as_float(word << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t word) {
+  return __uint_as_float(word & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ uint32_t word(const int4& v, int i) {
+  return static_cast<uint32_t>(i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z
+                                                                    : v.w);
+}
+
+// ---- one chunk of one row: the multiply-accumulate per weight format -----
+//
+// Each Op gives the activation element type X, the accumulator Acc, the
+// elements in a 16-byte weight chunk, the chunk decoded once (W), its
+// product with one activation row's matching elements (mac, 16-byte
+// aligned x), and the same for one weight byte (mac_byte, any alignment).
+
+template <int WBITS, int XBYTES>
+struct IntOp;
+
+// W8 x A8: four dp4a over the chunk's four words.
+template <>
+struct IntOp<8, 1> {
+  using X = int8_t;
+  using Acc = uint32_t;
+  static constexpr int kElems = 16;
+  struct W { int v[4]; };
+  __device__ static W decode(const int4& c) { return {{c.x, c.y, c.z, c.w}}; }
+  __device__ static void mac(const W& w, const X* x, Acc& acc) {
+    const int4 xv = __ldg(reinterpret_cast<const int4*>(x));
+    int s = __dp4a(w.v[0], xv.x, 0);
+    s = __dp4a(w.v[1], xv.y, s);
+    s = __dp4a(w.v[2], xv.z, s);
+    s = __dp4a(w.v[3], xv.w, s);
+    acc += static_cast<uint32_t>(s);
+  }
+  __device__ static void mac_byte(uint32_t b, const X* x, long long k,
+                                  Acc& acc) {
+    acc += static_cast<uint32_t>(static_cast<int8_t>(b) * int(x[k]));
+  }
+};
+
+// W4 x A8: each weight word splits into its even and odd columns as
+// int8x4; the activation bytes are gathered to match; eight dp4a.
+template <>
+struct IntOp<4, 1> {
+  using X = int8_t;
+  using Acc = uint32_t;
+  static constexpr int kElems = 32;
+  struct W { int lo[4], hi[4]; };
+  __device__ static W decode(const int4& c) {
+    W w;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w.lo[i] = nibs_lo4(word(c, i));
+      w.hi[i] = nibs_hi4(word(c, i));
+    }
+    return w;
+  }
+  __device__ static void mac(const W& w, const X* x, Acc& acc) {
+    const int4* xp = reinterpret_cast<const int4*>(x);
+    const int4 a = __ldg(xp), b = __ldg(xp + 1);
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // weight word i covers columns 8i..8i+7 = activation words 2i, 2i+1
+      const uint32_t x0 = word(i < 2 ? a : b, (2 * i) % 4);
+      const uint32_t x1 = word(i < 2 ? a : b, (2 * i) % 4 + 1);
+      s = __dp4a(w.lo[i], static_cast<int>(__byte_perm(x0, x1, 0x6420)), s);
+      s = __dp4a(w.hi[i], static_cast<int>(__byte_perm(x0, x1, 0x7531)), s);
+    }
+    acc += static_cast<uint32_t>(s);
+  }
+  __device__ static void mac_byte(uint32_t b, const X* x, long long k,
+                                  Acc& acc) {
+    acc += static_cast<uint32_t>(nib_lo(b) * int(x[2 * k])
+                                 + nib_hi(b) * int(x[2 * k + 1]));
+  }
+};
+
+// W8 x A16: int16 activations have no dp4a form; 16 integer MACs.
+template <>
+struct IntOp<8, 2> {
+  using X = int16_t;
+  using Acc = uint32_t;
+  static constexpr int kElems = 16;
+  struct W { int4 c; };
+  __device__ static W decode(const int4& c) { return {c}; }
+  __device__ static void mac(const W& w, const X* x, Acc& acc) {
+    const int4* xp = reinterpret_cast<const int4*>(x);
+    const int4 a = __ldg(xp), b = __ldg(xp + 1);
+    int s = 0;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const uint32_t xw = word(e < 8 ? a : b, (e % 8) / 2);
+      s += s8(word(w.c, e / 4), e % 4) * s16(xw, e % 2);
+    }
+    acc += static_cast<uint32_t>(s);
+  }
+  __device__ static void mac_byte(uint32_t b, const X* x, long long k,
+                                  Acc& acc) {
+    acc += static_cast<uint32_t>(static_cast<int8_t>(b) * int(x[k]));
+  }
+};
+
+// W4 x A16: 32 integer MACs on nibbles unpacked in registers.
+template <>
+struct IntOp<4, 2> {
+  using X = int16_t;
+  using Acc = uint32_t;
+  static constexpr int kElems = 32;
+  struct W { int4 c; };
+  __device__ static W decode(const int4& c) { return {c}; }
+  __device__ static void mac(const W& w, const X* x, Acc& acc) {
+    const int4* xp = reinterpret_cast<const int4*>(x);
+    int s = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {             // 8 columns per weight word
+      const int4 xv = __ldg(xp + q);
+      const uint32_t ww = word(w.c, q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {           // byte j: columns 2j, 2j+1
+        const uint32_t b = (ww >> (8 * j)) & 0xFFu;
+        const uint32_t xw = word(xv, j);
+        s += nib_lo(b) * s16(xw, 0) + nib_hi(b) * s16(xw, 1);
+      }
+    }
+    acc += static_cast<uint32_t>(s);
+  }
+  __device__ static void mac_byte(uint32_t b, const X* x, long long k,
+                                  Acc& acc) {
+    acc += static_cast<uint32_t>(nib_lo(b) * int(x[2 * k])
+                                 + nib_hi(b) * int(x[2 * k + 1]));
+  }
+};
+
+// fp8-e4m3 weights x fp8-e4m3 (XBYTES 1) or bf16 (XBYTES 2) activations.
+template <int XBYTES>
+struct FpOp {
+  using X = typename std::conditional<XBYTES == 1, uint8_t, uint16_t>::type;
+  using Acc = float;
+  static constexpr int kElems = 16;
+  struct W { float v[16]; };
+  __device__ static W decode(const int4& c) {
+    W w;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = e4m3x2(word(c, i)), q = e4m3x2(word(c, i) >> 16);
+      w.v[4 * i] = p.x;
+      w.v[4 * i + 1] = p.y;
+      w.v[4 * i + 2] = q.x;
+      w.v[4 * i + 3] = q.y;
+    }
+    return w;
+  }
+  __device__ static void mac(const W& w, const X* x, Acc& acc) {
+    const int4* xp = reinterpret_cast<const int4*>(x);
+    if constexpr (XBYTES == 1) {
+      const int4 xv = __ldg(xp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 p = e4m3x2(word(xv, i)), q = e4m3x2(word(xv, i) >> 16);
+        acc = fmaf(w.v[4 * i], p.x, acc);
+        acc = fmaf(w.v[4 * i + 1], p.y, acc);
+        acc = fmaf(w.v[4 * i + 2], q.x, acc);
+        acc = fmaf(w.v[4 * i + 3], q.y, acc);
+      }
+    } else {
+      const int4 a = __ldg(xp), b = __ldg(xp + 1);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t xw = word(i < 4 ? a : b, i % 4);
+        acc = fmaf(w.v[2 * i], bf16_lo(xw), acc);
+        acc = fmaf(w.v[2 * i + 1], bf16_hi(xw), acc);
+      }
+    }
+  }
+  __device__ static void mac_byte(uint32_t b, const X* x, long long k,
+                                  Acc& acc) {
+    const float xv = XBYTES == 1 ? e4m3(x[k]) : bf16_lo(x[k]);
+    acc = fmaf(e4m3(b), xv, acc);
+  }
+};
+
+// ---- one warp, one weight row, up to NB activation rows ------------------
+//
+// acc[b] (b < nb) gets this lane's share of row . x[b]; the caller
+// reduces across the warp.  VEC: the row and x are 16-byte aligned and
+// row_bytes % 16 == 0, so whole chunks are loaded; otherwise one byte at
+// a time (ragged widths and misaligned views).
+template <class Op, int NB, bool VEC>
+__device__ __forceinline__ void row_dot(
+    const uint8_t* __restrict__ wrow, long long row_bytes,
+    const typename Op::X* __restrict__ x, long long x_stride, int nb,
+    typename Op::Acc (&acc)[NB]) {
+  const int lane = threadIdx.x % kWarp;
+  if constexpr (VEC) {
+    const int4* w4 = reinterpret_cast<const int4*>(wrow);
+    const long long n = row_bytes / 16;
+    for (long long c0 = lane; c0 < n; c0 += kWarp * kUnroll) {
+      int4 chunk[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {     // all loads first, then math
+        const long long c = c0 + u * kWarp;
+        chunk[u] = c < n ? __ldcs(w4 + c) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long c = c0 + u * kWarp;
+        if (c < n) {
+          const typename Op::W w = Op::decode(chunk[u]);
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            if (b < nb) Op::mac(w, x + b * x_stride + c * Op::kElems, acc[b]);
+        }
+      }
+    }
+  } else {
+    for (long long k = lane; k < row_bytes; k += kWarp) {
+      const uint32_t byte = wrow[k];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < nb) Op::mac_byte(byte, x + b * x_stride, k, acc[b]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+  return v;
+}
+
+// The TPU kernel's flush: int32 sum -> float32, times the row scale.
+__device__ __forceinline__ float dequant(uint32_t acc, float ws) {
+  return __fmul_rn(__int2float_rn(static_cast<int32_t>(acc)), ws);
+}
+
+inline int grid_for(int rows) {
+  return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+}
+
+}  // namespace pim

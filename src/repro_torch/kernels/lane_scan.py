@@ -31,8 +31,6 @@ Contract shared by both (and by the reference engine, bit for bit):
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core import commands as C
@@ -307,7 +305,6 @@ def lane_scan(cycs: torch.Tensor, streams: torch.Tensor,
                          f"{streams.device}")
     from repro_torch.kernels import build
 
-    lib = build.load_library()
     f, n, _ = streams.shape
     totals = torch.empty(f, dtype=torch.int32, device=streams.device)
     issue = (torch.empty((f, n), dtype=torch.int32, device=streams.device)
@@ -317,18 +314,11 @@ def lane_scan(cycs: torch.Tensor, streams: torch.Tensor,
     if streams.data_ptr() % 16:
         raise ValueError("streams must be 16-byte aligned")
     with torch.cuda.device(streams.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lane_scan_launch(
-            ctypes.c_void_p(cycs.data_ptr()),
-            ctypes.c_void_p(streams.data_ptr()),
-            ctypes.c_void_p(lengths.data_ptr()),
-            ctypes.c_void_p(issue.data_ptr() if need_issue else 0),
-            ctypes.c_void_p(totals.data_ptr()),
-            ctypes.c_int(f), ctypes.c_longlong(n),
-            ctypes.c_int(int(num_banks)), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"lane_scan kernel launch failed: "
-                           f"{build.error_string(lib, err)} (code {err})")
+        build.launch("lane_scan_launch", cycs.data_ptr(),
+                     streams.data_ptr(), lengths.data_ptr(),
+                     issue.data_ptr() if need_issue else None,
+                     totals.data_ptr(), f, n, int(num_banks),
+                     torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return issue, totals
 

@@ -10,6 +10,7 @@ package wrote.  On a machine with a card:
 
 (``--noconftest``: the suite's ``conftest.py`` imports the JAX package.)
 """
+import importlib.util
 import json
 import pathlib
 
@@ -22,13 +23,14 @@ from repro_torch.core import engine
 from repro_torch.core.pimsim import PimSimulator
 from repro_torch.core.timing import (DEFAULT_SYSTEM, LpddrTimings, PimSpec,
                                      SystemSpec)
-from repro_torch.kernels import lane_scan
+from repro_torch.kernels import lane_scan, ops, pim_gemm, pim_gemv, ref
 from repro_torch.pimkernel.executor import (FunctionalGemv, GemvRequest,
                                             PimExecutor)
 from repro_torch.pimkernel.tileconfig import ALL_DTYPES, PimDType
 from repro_torch.serving.offload import OffloadPlanner
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN_SPECS = {"lp5x-9600": DEFAULT_SYSTEM,
                 "rcd24-mac2": SystemSpec(timings=LpddrTimings(tRCD=24.0),
                                          pim=PimSpec(mac_interval_ck=2))}
@@ -176,3 +178,156 @@ def test_main_path_goes_through_the_kernel(dev):
     planner.invalidate()
     planner.plan()
     assert lane_scan.LAUNCHES == warm
+
+
+# ---------------------------------------------------------------------
+# The PIM-tile kernels (chip_smoke.py phases 6 and 7)
+# ---------------------------------------------------------------------
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PIM = {"pim_gemv_int": pim_gemv, "pim_gemv_fp": pim_gemv,
+       "pim_gemm_int": pim_gemm, "pim_gemm_fp": pim_gemm}
+
+
+def held_to_plain(name, *args, **kw):
+    """Launch one wrapper on the card (counted once) and hold it to its
+    plain version: int bit-equal, fp within the f32 sum bound."""
+    mod = PIM[name]
+    before = mod.LAUNCHES[name]
+    out = getattr(mod, name)(*args, **kw)
+    assert mod.LAUNCHES[name] == before + 1
+    want = getattr(mod, f"{name}_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    _chip_smoke().pim_error(name, out, want, args)
+    return out
+
+
+def through_pim_linear(x, qw):
+    """``pim_linear`` on the card, each kernel call held to its plain
+    version on the operands pim_linear handed it."""
+    smoke = _chip_smoke()
+    calls = []
+
+    def hold(name, out, args, kw):
+        want = getattr(PIM[name], f"{name}_plain")(*args, **kw)
+        smoke.pim_error(name, out, want, args)
+        calls.append(name)
+
+    real = smoke.patch_pim_kernels(PIM, hold)
+    try:
+        y = ops.pim_linear(x, qw)
+    finally:
+        smoke.restore_pim_kernels(PIM, real)
+    assert len(calls) == 1
+    return y
+
+
+@pytest.mark.parametrize("dtype", ALL_DTYPES, ids=lambda d: d.name)
+@pytest.mark.parametrize("h,w", [(130, 258), (256, 4096), (37, 1000)])
+def test_pim_kernels_match_plain_through_pim_linear(dev, dtype, h, w):
+    rng = np.random.default_rng(h + w)
+    wd = torch.from_numpy(rng.standard_normal((h, w)).astype(np.float32))
+    xd = torch.from_numpy(rng.standard_normal((9, w)).astype(np.float32))
+    qw = ops.prepare_weights(wd.to(dev), dtype, device=dev)
+    for x in (xd[0], xd[:1], xd[:3], xd[:8], xd):
+        before = {name: mod.LAUNCHES[name] for name, mod in PIM.items()}
+        y = through_pim_linear(x.to(dev), qw)
+        assert y.shape == ((h,) if x.dim() == 1 else (x.shape[0], h))
+        assert sum(mod.LAUNCHES[name] - before[name]
+                   for name, mod in PIM.items()) == 1
+
+
+@pytest.mark.parametrize("w_bits", [8, 4])
+@pytest.mark.parametrize("x_dtype", [torch.int8, torch.int16])
+def test_int_extremes_and_misaligned_views_on_card(dev, w_bits, x_dtype):
+    """Every int4 nibble / int8 byte against int8/int16 extremes, on
+    aligned operands (vector loads) and misaligned views (byte-wise)."""
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(w_bits)
+    wq = (torch.stack([torch.randperm(256, generator=gen)
+                       for _ in range(16)]) - 128).to(torch.int8).to(dev)
+    width = 256 * (2 if w_bits == 4 else 1)
+    info = torch.iinfo(x_dtype)
+    xb = torch.randint(info.min, info.max + 1, (9, width), generator=gen)
+    xb[:, :4] = torch.tensor([info.min, info.max, -1, 0])
+    xb = xb.to(x_dtype).to(dev)
+    ws = torch.linspace(0.5, 2.0, 16, device=dev)
+    for wop, xop in ((wq, xb), (smoke.misaligned(wq), smoke.misaligned(xb))):
+        held_to_plain("pim_gemv_int", wop, xop[0], ws, 0.37, w_bits=w_bits)
+        held_to_plain("pim_gemm_int", wop, xop, ws, 0.37, w_bits=w_bits)
+
+
+def test_int32_wraparound_on_card(dev):
+    qw = ops.prepare_weights(torch.full((8, 16384), 0.5, device=dev),
+                             "W8A16", device=dev)
+    x = torch.full((16384,), 3.0, device=dev)
+    ws = pim_gemv.row_scale(qw.scale, ref.quantize_acts(x, 16)[1])
+    want = torch.tensor(-538951680.0, device=dev) * ws
+    assert torch.equal(ops.pim_linear(x, qw), want)
+    assert torch.equal(ops.pim_linear(torch.stack([x, x]), qw)[1], want)
+
+
+@pytest.mark.parametrize("dtype", ["FP_W8A8", "FP_W8A16"])
+def test_fp8_nan_and_saturation_on_card(dev, dtype):
+    rng = np.random.default_rng(7)
+    wf = rng.standard_normal((40, 64)).astype(np.float32)
+    wf[:, 0], wf[3], wf[5, 1] = 448.0, -448.0, 1000.0
+    xf = rng.standard_normal((6, 64)).astype(np.float32)
+    xf[1, 2], xf[2, 3], xf[3, 4] = 464.0, 464.01, -1000.0
+    xf[4, 5], xf[5, 6] = np.inf, np.nan
+    qw = ops.prepare_weights(torch.from_numpy(wf).to(dev), dtype,
+                             device=dev)
+    cpu = ops.prepare_weights(wf, dtype, device="cpu")
+    assert torch.equal(qw.q.view(torch.uint8).cpu(), cpu.q.view(torch.uint8))
+    for x in (xf, xf[1], xf[3]):
+        y = through_pim_linear(torch.from_numpy(x).to(dev), qw)
+        assert torch.equal(y.isnan().cpu(),
+                           ops.pim_linear(torch.from_numpy(x), cpu).isnan())
+
+
+def test_prepare_weights_on_card_gives_the_cpu_bytes(dev):
+    rng = np.random.default_rng(3)
+    wf = (rng.standard_normal((300, 512)) * 0.02).astype(np.float32)
+    for dtype in ALL_DTYPES:
+        card = ops.prepare_weights(wf, dtype, device=dev)
+        cpu = ops.prepare_weights(wf, dtype, device="cpu")
+        assert card.q.device.type == "cuda"
+        assert torch.equal(card.q.view(torch.uint8).cpu(),
+                           cpu.q.view(torch.uint8))
+        if not dtype.is_fp:
+            assert torch.equal(card.scale.cpu(), cpu.scale)
+
+
+def test_pim_wrappers_refuse_mixed_devices(dev):
+    wq = torch.zeros((4, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="is on cpu"):
+        pim_gemv.pim_gemv_int(wq, torch.zeros(32, dtype=torch.int8),
+                              torch.ones(4, device=dev), 1.0)
+
+
+def test_granite_8b_linear_fixture_on_card(dev):
+    """The full-width fixture: 8 sites x 7 dtypes x batch 1 and 8."""
+    smoke = _chip_smoke()
+    fixture = json.loads((GOLDEN / "torch_pim_linear.json").read_text())
+    before = {name: mod.LAUNCHES[name] for name, mod in PIM.items()}
+    for index, site in enumerate(fixture["sites"]):
+        wts, acts = smoke.site_inputs(fixture["seed"], index, site["h"],
+                                      site["w"])
+        wd, xd = torch.from_numpy(wts).to(dev), torch.from_numpy(acts).to(dev)
+        for dtype in ALL_DTYPES:
+            qw = ops.prepare_weights(wd, dtype, device=dev)
+            for b in (1, 8):
+                y = ops.pim_linear(xd[0] if b == 1 else xd, qw)
+                key = f"{site['name']}/{dtype.name}/b{b}"
+                assert smoke.fixture_mismatch(
+                    fixture["results"][key], y.cpu().numpy(),
+                    fixture["fp_rel_tol"]) is None, key
+    assert all(mod.LAUNCHES[name] > before[name]
+               for name, mod in PIM.items())

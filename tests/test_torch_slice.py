@@ -6,7 +6,8 @@ resolver); the reference runs on JAX's CPU backend.  The whole slice —
 — must agree exactly: the committed ``fleet_parity.json`` cycles and
 energy, functional co-simulation outputs, and the offload decisions of a
 granite-8b smoke config.  The rules of the port are checked here too: no
-module of ``repro_torch`` (nor ``chip_smoke.py``) imports ``jax`` or
+module of ``repro_torch`` (nor ``chip_smoke.py`` or
+``tests/test_torch_gpu.py``) imports ``jax``, ``ml_dtypes`` or
 ``repro``, and an entry point given no device raises when there is no
 card.
 
@@ -39,6 +40,7 @@ from repro_torch.configs.base import smoke_config
 from repro_torch.core import engine
 from repro_torch.core.pimsim import PimSimulator
 from repro_torch.core.timing import spec_from_dict
+from repro_torch.kernels import ops
 from repro_torch.pimkernel.executor import (FunctionalGemv, GemvRequest,
                                             PimExecutor)
 from repro_torch.pimkernel.tileconfig import PimDType
@@ -220,18 +222,19 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 def test_port_never_imports_jax_or_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 20
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), \
+            assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), \
                 f"{path.relative_to(ROOT)} imports {name}"
 
 
 @pytest.mark.parametrize("entry", ["simulator", "executor", "planner",
                                    "resolve_fleet", "resolve_lanes",
-                                   "run_streams"])
+                                   "run_streams", "prepare_weights",
+                                   "from_numpy"])
 def test_entry_points_raise_without_a_card(entry, monkeypatch):
     """No device given and no card: raise, never drop to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -245,6 +248,11 @@ def test_entry_points_raise_without_a_card(entry, monkeypatch):
         "resolve_fleet": lambda: engine.resolve_fleet([(cyc, [stream])]),
         "resolve_lanes": lambda: engine.resolve_lanes([(cyc, stream)]),
         "run_streams": lambda: engine.run_streams(cyc, [stream]),
+        "prepare_weights": lambda: ops.prepare_weights(
+            np.ones((4, 8), np.float32), "W8A8"),
+        "from_numpy": lambda: ops.QuantWeights.from_numpy(
+            "W8A8", np.ones((4, 8), np.int8), np.ones(4, np.float32),
+            (4, 8)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
