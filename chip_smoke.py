@@ -6,7 +6,8 @@
 Phases (any failure exits nonzero before the last line):
 
 1. The card (``nvidia-smi``) and the kernel build (``nvcc`` from the
-   sources under ``src/repro_torch/kernels/csrc``).
+   sources under ``src/repro_torch/kernels/csrc``), with the registers
+   and spills ptxas reports for the tensor-core fp GEMM kernels.
 2. The lane-scan kernel against its plain torch version on the card:
    fuzzed lanes at every instantiated bank count (ragged lengths,
    out-of-range opcodes and banks, wrapping timings), the probe lane,
@@ -25,16 +26,25 @@ Phases (any failure exits nonzero before the last line):
    versions on the card, on the operands ``pim_linear`` hands them:
    fuzzed and ragged shapes, all 7 dtypes, batch 1 (GEMV) and 1, 3, 8,
    9 (GEMM); int4 nibbles and int8/int16 extremes, the int32-wraparound
-   case, fp8 NaN and saturation, and misaligned views (the byte-wise
-   path).  Int outputs must be bit-equal; fp outputs within
+   case, fp8 NaN and saturation, misaligned views (the byte-wise
+   path), and the tensor-core fp GEMM's tile edges (batch 2, 7, 17;
+   rows past a 16-row tile; widths ending inside a 128-column span).
+   Int outputs must be bit-equal; fp outputs within
    ``2 W 2**-24 sum|w x|`` per output, the bound of an f32 sum.
 7. ``granite_8b_linear``, the quantized-linear path at full width, with
    the kernels' launch counts at 0: one granite-8b layer plus
    ``lm_head`` (8 sites), each weight prepared on the card for all 7
    dtypes and run at batch 1 and 8, must reproduce
    ``tests/golden/torch_pim_linear.json`` (computed by the JAX package).
-   Then each kernel's time at ``lm_head``, beside its bound, its plain
-   version and, where one exists, one PyTorch call of the same function.
+   Every fp GEMM there must take the tensor-core variant.  Then each
+   kernel's time at ``lm_head``, beside its bound, its plain version
+   and, where one exists, one PyTorch call of the same function.
+
+Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
+flushed before every launch, one pair of CUDA events per launch, the
+median, min and max over many launches (100 for the PIM-tile kernels,
+5 for each lane-scan launch, which runs for 0.6-1.9 s), a kernel and its
+library call timed in turns.
 
 The second-to-last line is the ``kernels`` JSON record (all five
 kernels); the last is ``{"ok": true, "device": {...}}``.
@@ -57,6 +67,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate
 PEAK_OPS_8BIT = 1979e12
 PEAK_OPS_16BIT = 989e12
 CHAIN_CYCLES_PER_STEP = 32         # 8 dependent int ops x ~4 cycles
+L2_FLUSH_BYTES = 128 << 20         # written before each timed launch
+HOST_COVER_CYCLES = 400_000        # device sleep before each: ~0.2 ms
+KERNEL_REPS = 100                  # timed launches per PIM-tile kernel
+LANE_REPS = 5                      # per lane-scan launch (each 0.6-1.8 s)
 
 
 def fail(msg: str) -> None:
@@ -181,18 +195,68 @@ def pim_error(name: str, out: torch.Tensor, want: torch.Tensor,
     return float(diff[finite].max()) if bool(finite.any()) else 0.0
 
 
-def elapsed_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs (CUDA events)."""
-    fn()                                            # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+_FLUSH: list = []
+
+
+def timed_ms(fns: dict, reps: int) -> dict:
+    """Device time of each callable in ``fns``, taken in turns, with L2
+    cold: before every launch a buffer of ``L2_FLUSH_BYTES`` (above the
+    card's 50 MB L2) is written and then another of half that size is
+    read, so L2 holds none of the operands and no dirty lines whose
+    write-back the timed launch would pay for.  A device-side sleep then
+    keeps the card busy while the host records the start event and
+    enqueues the launch, so host work in a wrapper never lands between a
+    launch's own pair of CUDA events.  Returns, per name, the median, min
+    and max over ``reps`` launches."""
+    if not _FLUSH:
+        _FLUSH.extend([
+            torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda"),
+            torch.zeros(L2_FLUSH_BYTES // 2, dtype=torch.uint8,
+                        device="cuda")])
+    for fn in fns.values():                         # warm-up
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    pairs = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            _FLUSH[0].zero_()
+            _FLUSH[1].max()
+            torch.cuda._sleep(HOST_COVER_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs[name].append((start, end))
+    torch.cuda.synchronize()
+    out = {}
+    for name, ev in pairs.items():
+        t = sorted(a.elapsed_time(b) for a, b in ev)
+        out[name] = dict(ms=t[len(t) // 2] if len(t) % 2
+                         else (t[len(t) // 2 - 1] + t[len(t) // 2]) / 2,
+                         min_ms=t[0], max_ms=t[-1], launches=len(t))
+    return out
+
+
+def ptxas_kernels(log: str, pattern: str) -> list[dict]:
+    """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for
+    each entry function whose mangled name matches ``pattern``."""
+    found = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        if not re.search(pattern, name):
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        args = re.findall(r"ILi(\d+)E|Li(\d+)E", name)
+        found.append(dict(
+            name=re.search(pattern, name).group(0) + "<" + ",".join(
+                a or b for a, b in args) + ">",
+            registers=int(regs.group(1)) if regs else None,
+            spill_bytes=(int(spill.group(1)) + int(spill.group(2))
+                         if spill else None)))
+    return found
 
 
 def pim_kernels_vs_plain(dev, mods: dict, plain: dict) -> dict:
@@ -250,6 +314,19 @@ def pim_kernels_vs_plain(dev, mods: dict, plain: dict) -> dict:
         xb = ref.to_e4m3fn(xb) if xdt == torch.float8_e4m3fn else xb.to(xdt)
         pim_gemv.pim_gemv_fp(misaligned(w8), misaligned(xb)[1].contiguous())
         pim_gemm.pim_gemm_fp(misaligned(w8), misaligned(xb))
+
+    # The tensor-core fp GEMM's tile edges: batch rows past 8 and 16,
+    # weight rows past each 32-row block, widths that end inside a
+    # 128-column span; a +-448 weight row and a NaN activation.
+    for b, h, w in ((2, 15, 48), (7, 17, 4128), (17, 130, 4096),
+                    (17, 33, 16)):
+        wf = rng.standard_normal((h, w)).astype(np.float32) * 4.0
+        wf[h // 2] = np.where(np.arange(w) % 2, 448.0, -448.0)
+        xf = rng.standard_normal((b, w)).astype(np.float32) * 4.0
+        xf[b - 1, w // 3] = np.nan
+        w8 = ref.to_e4m3fn(dev_t(wf))
+        for xb in (ref.to_e4m3fn(dev_t(xf)), dev_t(xf).to(torch.bfloat16)):
+            pim_gemm.pim_gemm_fp(w8, xb)
 
     # The int32 wraparound: 127 * 32767 * 16384 through pim_linear.
     qw = ops.prepare_weights(torch.full((8, 16384), 0.5, device=dev),
@@ -309,9 +386,13 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
         if now["site"] == "lm_head":
             heavy[(name, now["dtype"])] = (out, args, kw)
 
+    from repro_torch.kernels import pim_gemm
+
     real = patch_pim_kernels(mods, keep_lm_head)
     for name, mod in mods.items():
         mod.LAUNCHES[name] = 0
+    for variant in pim_gemm.FP_VARIANT_LAUNCHES:
+        pim_gemm.FP_VARIANT_LAUNCHES[variant] = 0
     t0 = time.perf_counter()
     for index, site in enumerate(sites):
         wts, acts = site_inputs(fixture["seed"], index, site["h"],
@@ -331,11 +412,15 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
     wall = time.perf_counter() - t0
     restore_pim_kernels(mods, real)
     launches = {name: mod.LAUNCHES[name] for name, mod in mods.items()}
+    variants = dict(pim_gemm.FP_VARIANT_LAUNCHES)
     check(all(n > 0 for n in launches.values()),
           f"granite_8b_linear did not launch every kernel: {launches}")
+    check(variants == {"mma": launches["pim_gemm_fp"], "bytes": 0},
+          f"full-width fp GEMMs did not all take the tensor-core kernel: "
+          f"{variants}")
     print(f"[7] granite_8b_linear: {len(fixture['results'])} outputs "
           f"reproduce torch_pim_linear.json; {wall:.2f} s wall, launches "
-          f"{launches}")
+          f"{launches}; pim_gemm_fp variants {variants}")
 
     timed = {}
     for (name, dtype), (out, args, kw) in sorted(heavy.items()):
@@ -343,8 +428,13 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
         width = x_op.shape[-1]
         batch = 1 if x_op.dim() == 1 else x_op.shape[0]
         err = pim_error(name, out, plain[name](*args, **kw), args)
-        ms = elapsed_ms(lambda: real[name](*args, **kw), 20)
-        plain_ms = elapsed_ms(lambda: plain[name](*args, **kw), 3)
+        fns = {"kernel": lambda: real[name](*args, **kw)}
+        lib = library_call(dtype, w_op, x_op)
+        if lib is not None:
+            fns["library"] = lib
+        t = timed_ms(fns, KERNEL_REPS)      # kernel and library in turns
+        plain_t = timed_ms({"plain": lambda: plain[name](*args, **kw)},
+                           5)["plain"]
         nbytes = out.numel() * 4 + sum(a.numel() * a.element_size()
                                        for a in args
                                        if isinstance(a, torch.Tensor))
@@ -352,17 +442,21 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
         peak = PEAK_OPS_16BIT if x_op.element_size() == 2 else PEAK_OPS_8BIT
         ops_ms = 2 * batch * w_op.shape[0] * width / peak * 1e3
         timed[(name, dtype)] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            ms=t["kernel"]["ms"], plain_ms=plain_t["ms"],
+            bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=library_ms(dtype, w_op, x_op), max_abs_err=err,
-            batch=batch, bytes=nbytes)
+            library_ms=t["library"]["ms"] if lib else None,
+            max_abs_err=err, batch=batch, bytes=nbytes,
+            spread={k: [v["min_ms"], v["max_ms"]] for k, v in t.items()},
+            launches_timed=KERNEL_REPS)
         print(f"[7] {name} lm_head {dtype} B={batch}: "
               f"{json.dumps(timed[(name, dtype)])}")
-    return dict(wall=wall, launches=launches, timed=timed)
+    return dict(wall=wall, launches=launches, variants=variants,
+                timed=timed)
 
 
-def library_ms(dtype: str, w_op: torch.Tensor, x_op: torch.Tensor):
-    """One PyTorch call of the same function, timed as a yardstick (the
+def library_call(dtype: str, w_op: torch.Tensor, x_op: torch.Tensor):
+    """One PyTorch call of the same function, to time as a yardstick (the
     port never calls it), or None where no single call computes it:
     ``torch._int_mm`` for W8A8 (its batch padded with zero rows to 32,
     above its minimum of 16 and a multiple of 8) and ``torch._scaled_mm``
@@ -372,16 +466,15 @@ def library_ms(dtype: str, w_op: torch.Tensor, x_op: torch.Tensor):
     if dtype == "W8A8":
         a = torch.zeros((32, xb.shape[1]), dtype=torch.int8, device=xb.device)
         a[: xb.shape[0]] = xb
-        return elapsed_ms(lambda: torch._int_mm(a, w_op.T), 20)
+        return lambda: torch._int_mm(a, w_op.T)
     if dtype == "FP_W8A8":
         a = torch.zeros((16, xb.shape[1]), dtype=torch.uint8,
                         device=xb.device)
         a[: xb.shape[0]] = xb.view(torch.uint8)
         a = a.view(torch.float8_e4m3fn)
         one = torch.ones((), device=xb.device)
-        return elapsed_ms(lambda: torch._scaled_mm(
-            a, w_op.T, scale_a=one, scale_b=one, out_dtype=torch.float32),
-            20)
+        return lambda: torch._scaled_mm(
+            a, w_op.T, scale_a=one, scale_b=one, out_dtype=torch.float32)
     return None
 
 
@@ -425,6 +518,13 @@ def main() -> int:
         print(f"    ptxas {source}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
               f"bytes {spills}")
+    mma_ptxas = ptxas_kernels(build.BUILD_INFO["logs"].get("pim_gemm.cu", ""),
+                              r"gemm_fp_mma_kernel")
+    for k in mma_ptxas:
+        print(f"    ptxas {k['name']} (XBYTES, NT): {k['registers']} "
+              f"registers, {k['spill_bytes']} spill bytes")
+    check(not build.BUILD_INFO["logs"] or len(mma_ptxas) == 4,
+          f"ptxas reported {len(mma_ptxas)} tensor-core fp GEMM kernels")
 
     # ---- 2. kernel == plain on the card ---------------------------------
     rng = np.random.default_rng(0)
@@ -486,10 +586,10 @@ def main() -> int:
     compare(*pim_inputs, 16, "Fig-4 PIM streams 512x4096 W8A8")
     steps = int(pim_inputs[2].max())
     cu = [x.to(dev) for x in pim_inputs]
-    plain_ms = elapsed_ms(
-        lambda: lane_scan.lane_scan_plain(*cu, 16, need_issue=False), 1)
-    short_kernel_ms = elapsed_ms(
-        lambda: lane_scan.lane_scan(*cu, 16, need_issue=False), 5)
+    plain_ms = timed_ms({"plain": lambda: lane_scan.lane_scan_plain(
+        *cu, 16, need_issue=False)}, 1)["plain"]["ms"]
+    short_kernel_ms = timed_ms({"kernel": lambda: lane_scan.lane_scan(
+        *cu, 16, need_issue=False)}, 9)["kernel"]["ms"]
     print(f"[2] kernel == plain on the card (max abs err {worst}); "
           f"Fig-4 PIM lanes ({cu[1].shape[0]} x {steps} steps): plain "
           f"{plain_ms:.1f} ms, kernel {short_kernel_ms:.3f} ms")
@@ -649,13 +749,18 @@ def main() -> int:
     for p in ("fig4_sweep", "granite_8b_decode"):
         runs = [(a, kw) for q, a, kw in launched if q == p]
         ms = bound_ms = 0.0
+        spread = [0.0, 0.0]
         by = "operations"
         for args, kw in runs:
-            ms += elapsed_ms(lambda: real_scan(*args, **kw), 3)
+            t = timed_ms({"kernel": lambda: real_scan(*args, **kw)},
+                         LANE_REPS)["kernel"]
+            ms += t["ms"]
+            spread = [spread[0] + t["min_ms"], spread[1] + t["max_ms"]]
             b, by = bound(args, kw.get("need_issue", True))
             bound_ms += b
         fleets[p] = dict(
-            launches=len(runs), ms=ms, bound_ms=bound_ms, bound_by=by,
+            launches=len(runs), ms=ms, spread=spread, launches_timed=LANE_REPS,
+            bound_ms=bound_ms, bound_by=by,
             lanes=sum(int(a[1].shape[0]) for a, _ in runs),
             commands=sum(int(a[2].sum()) for a, _ in runs),
             longest_lane=max(int(a[2].max()) for a, _ in runs))
@@ -691,13 +796,17 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "matches_plain": True,
             "ms_on": f"lm_head 49152x4096 {headline[name]}, batch "
-                     f"{head['batch']}, granite_8b_linear's operands",
+                     f"{head['batch']}, granite_8b_linear's operands; median "
+                     f"of {KERNEL_REPS} launches, L2 flushed before each, in "
+                     f"turns with the library call",
             "library_on": ("torch._int_mm, batch padded to 32"
                            if name.endswith("_int")
                            else "torch._scaled_mm, unit scales, batch "
                                 "padded to 16"),
             "granite_8b_linear_wall_s": linear["wall"],
-            "by_dtype": by_dtype})
+            "by_dtype": by_dtype,
+            **({"variants": linear["variants"], "ptxas": mma_ptxas}
+               if name == "pim_gemm_fp" else {})})
 
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{

@@ -1,25 +1,47 @@
 // Batched PIM-tile quantized GEMM for Hopper (sm_90a): Y = X W^T for a
 // decode batch, (B, W) x (H, W) -> (B, H).
 //
-// Replaces the TPU kernels src/repro/kernels/pim_gemm.py:_gemm_int_kernel
-// (int8 / packed int4 weights x int8 / int16 activations, int32 sums,
-// dequantized by the (1, H) scale row in the flush) and
-// src/repro/kernels/pim_gemm.py:_gemm_fp_kernel (fp8-e4m3 weights x fp8 /
-// bf16 activations, float32 sums).
+// Replaces the TPU kernels src/repro/kernels/pim_gemm.py:22
+// _gemm_int_kernel (int8 / packed int4 weights x int8 / int16
+// activations, int32 sums, dequantized by the (1, H) scale row in the
+// flush) and src/repro/kernels/pim_gemm.py:46 _gemm_fp_kernel (fp8-e4m3
+// weights x fp8 / bf16 activations, float32 sums).
 //
-// What bounds it on this card: bytes.  At a decode batch of B <= 8 rows the
-// product does 2 B operations per weight byte (W8; 4 B for W4), far below
-// the ~590 int8 operations per byte where the tensor cores would become
-// the limit, so streaming the weights once is the cost.  The design is the
-// GEMV's (one warp per weight row, 16-byte streaming loads, four in
-// flight per lane, int4 / fp8 decoded in registers) with up to 8 batch
-// rows' sums held in each lane's registers: a weight chunk is decoded
-// once and multiplied against every row of the batch tile, so the weights
-// cross device memory once per tile of 8.  Larger batches loop over tiles
-// in the kernel (the weight row then comes back from L2).  The activation
-// rows are read through L1; at 8 rows and bf16 that L1 traffic, not device
-// memory, may bind first -- a later, faster version would stage them in
-// shared memory or move to wgmma tiles.
+// What bounds it on this card: bytes.  At a decode batch of B <= 8 rows
+// the product does 2 B operations per weight byte, far below the ~295
+// per byte where even the bf16 tensor cores would become the limit, so
+// streaming the weights once is the cost.  What must not bind first is
+// the work per weight byte on the SM.
+//
+// int (gemm_int_kernel): the GEMV's design -- one warp per weight row,
+// 16-byte streaming loads, four in flight per lane, int4 unpacked in
+// registers -- with up to 8 batch rows' sums in each lane's registers.
+// Each chunk costs 8 rows of dp4a / scalar MACs and 8 re-reads of the
+// activations through L1, which limits it at B = 8.
+//
+// fp (gemm_fp_mma_kernel): the multiply moves to the tensor cores, so
+// the work per weight byte falls from 8 scalar FMAs plus decode and L1
+// loads to about one instruction.  A block owns one m16n8k16 M tile (16
+// weight rows); its 8 warps split the width in spans of 128 columns; the
+// batch is N, 8 rows per tile, and a batch larger than 8 takes two N
+// tiles per pass (each decoded weight fragment feeds both) and further
+// passes beyond 16.  Each lane loads 16 bytes of weight rows g and g + 8
+// at columns 16t and 64 + 16t of its span -- four lanes read a row's
+// whole 128-byte line -- with streaming loads that ask L2 for 256-byte
+// blocks, all four in flight before any math, and decodes them in
+// registers (pim_tile.cuh has the fragment layout and why no shared
+// memory is needed).  FP_W8A8 runs the f16 MMA on e4m3 decoded to f16;
+// FP_W8A16 the bf16 MMA on e4m3 decoded to bf16; both exact, with
+// float32 accumulators.  The 8 warps' partial tiles are summed through
+// shared memory in a fixed order, so results are deterministic.  Columns
+// past W (W % 128 != 0), rows past H and batch rows past B load zeros in
+// both operands' places and are never stored.  Two M tiles per block
+// (sharing each activation fragment), four, 16 warps, L2 prefetches of
+// the next span and 256-column spans all measured slower on the card.
+//
+// Operands that are not 16-byte aligned, or a width that is not a
+// multiple of 16, take gemm_fp_kernel<XBYTES>: one warp per row,
+// one byte at a time.  The wrapper chooses by shape and alignment.
 #include "pim_tile.cuh"
 
 namespace {
@@ -53,7 +75,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int XBYTES, bool VEC>
+template <int XBYTES>
 __global__ void __launch_bounds__(kThreads)
     gemm_fp_kernel(const uint8_t* __restrict__ w,
                    const typename FpOp<XBYTES>::X* __restrict__ x,
@@ -64,8 +86,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int b0 = 0; b0 < B; b0 += kBatchTile) {
     const int nb = min(kBatchTile, B - b0);
     float acc[kBatchTile] = {};
-    row_dot<FpOp<XBYTES>, kBatchTile, VEC>(w + h * W, W, x + b0 * W, W, nb,
-                                           acc);
+    row_dot<FpOp<XBYTES>, kBatchTile, false>(w + h * W, W, x + b0 * W, W,
+                                             nb, acc);
 #pragma unroll
     for (int b = 0; b < kBatchTile; ++b) {
       if (b < nb) {
@@ -74,6 +96,107 @@ __global__ void __launch_bounds__(kThreads)
           out[(b0 + b) * static_cast<long long>(H) + h] = sum;
       }
     }
+  }
+}
+
+constexpr int kMmaWarps = 8;                 // split the width
+constexpr int kMmaThreads = kWarp * kMmaWarps;
+constexpr int kMmaRows = 16;                 // one M tile per block
+constexpr int kMmaSpan = 128;                // columns per warp step
+
+// NT: N tiles (8 batch rows each) per pass over the weights.
+template <int XBYTES, int NT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    gemm_fp_mma_kernel(const uint8_t* __restrict__ w,
+                       const uint8_t* __restrict__ x,
+                       float* __restrict__ out, int B, int H, long long W) {
+  __shared__ float part[kMmaWarps][NT * 4][kWarp];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kMmaRows;
+  const long long spans = (W + kMmaSpan - 1) / kMmaSpan;
+  const int4 zero = make_int4(0, 0, 0, 0);
+
+  for (int b0 = 0; b0 < B; b0 += 8 * NT) {
+    float acc[NT][4] = {};
+    for (long long sp = warp; sp < spans; sp += kMmaWarps) {
+      const long long col0 = sp * kMmaSpan + 16 * t;
+      int4 wv[2][2];                         // [row g, g + 8][half]
+      int4 xv[NT][2][XBYTES];                // [N tile][half][16 B piece]
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const long long row = row0 + 8 * r + g;
+          const long long col = col0 + 64 * hf;
+          wv[r][hf] = row < H && col < W ? ld_stream_256(w + row * W + col)
+                                         : zero;
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int p = 0; p < XBYTES; ++p) {
+            const long long b = b0 + 8 * nt + g;
+            const long long col = col0 + 64 * hf;
+            xv[nt][hf][p] =
+                b < B && col < W
+                    ? __ldg(reinterpret_cast<const int4*>(
+                                x + (b * W + col) * XBYTES) + p)
+                    : zero;
+          }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {        // MMA step: columns 4s..4s+3
+          const uint32_t lo = word(wv[0][hf], s), hi = word(wv[1][hf], s);
+          uint32_t a[4];
+          if constexpr (XBYTES == 1) {
+            a[0] = e4m3x2_f16x2(lo);
+            a[1] = e4m3x2_f16x2(hi);
+            a[2] = e4m3x2_f16x2(lo >> 16);
+            a[3] = e4m3x2_f16x2(hi >> 16);
+          } else {
+            a[0] = e4m3x2_bf16x2(lo);
+            a[1] = e4m3x2_bf16x2(hi);
+            a[2] = e4m3x2_bf16x2(lo >> 16);
+            a[3] = e4m3x2_bf16x2(hi >> 16);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (NT > 1 && b0 + 8 * nt >= B) continue;  // warp-uniform
+            uint32_t b[2];
+            if constexpr (XBYTES == 1) {
+              const uint32_t xw = word(xv[nt][hf][0], s);
+              b[0] = e4m3x2_f16x2(xw);
+              b[1] = e4m3x2_f16x2(xw >> 16);
+            } else {                         // bf16: already the MMA type
+              b[0] = word(xv[nt][hf][s / 2], 2 * (s % 2));
+              b[1] = word(xv[nt][hf][s / 2], 2 * (s % 2) + 1);
+            }
+            mma_16816<XBYTES == 2>(acc[nt], a, b[0], b[1]);
+          }
+        }
+    }
+
+    // The block's 8 partial tiles, summed in warp order.
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[warp][nt * 4 + j][lane] = acc[nt][j];
+    __syncthreads();
+    for (int i = threadIdx.x; i < NT * 4 * kWarp; i += kMmaThreads) {
+      const int reg = i / kWarp, ln = i % kWarp;
+      float sum = part[0][reg][ln];
+#pragma unroll
+      for (int k = 1; k < kMmaWarps; ++k) sum += part[k][reg][ln];
+      const int nt = reg / 4, j = reg % 4;
+      const long long h = row0 + ln / 4 + 8 * (j / 2);
+      const long long b = b0 + 8 * nt + 2 * (ln % 4) + j % 2;
+      if (h < H && b < B) out[b * H + h] = sum;
+    }
+    __syncthreads();                         // part is reused next pass
   }
 }
 
@@ -96,15 +219,20 @@ cudaError_t launch_int(const void* w, const void* x, const float* ws,
 template <int XBYTES>
 cudaError_t launch_fp(const void* w, const void* x, float* out, int B, int H,
                       long long W, bool vec, cudaStream_t s) {
-  using X = typename FpOp<XBYTES>::X;
   const auto* wp = static_cast<const uint8_t*>(w);
-  const auto* xp = static_cast<const X*>(x);
-  if (vec)
-    gemm_fp_kernel<XBYTES, true>
-        <<<grid_for(H), kThreads, 0, s>>>(wp, xp, out, B, H, W);
+  if (!vec) {
+    gemm_fp_kernel<XBYTES><<<grid_for(H), kThreads, 0, s>>>(
+        wp, static_cast<const typename FpOp<XBYTES>::X*>(x), out, B, H, W);
+    return cudaGetLastError();
+  }
+  const auto* xp = static_cast<const uint8_t*>(x);
+  const int grid = (H + kMmaRows - 1) / kMmaRows;
+  if (B <= 8)
+    gemm_fp_mma_kernel<XBYTES, 1><<<grid, kMmaThreads, 0, s>>>(wp, xp, out, B,
+                                                               H, W);
   else
-    gemm_fp_kernel<XBYTES, false>
-        <<<grid_for(H), kThreads, 0, s>>>(wp, xp, out, B, H, W);
+    gemm_fp_mma_kernel<XBYTES, 2><<<grid, kMmaThreads, 0, s>>>(wp, xp, out, B,
+                                                               H, W);
   return cudaGetLastError();
 }
 
@@ -134,7 +262,8 @@ int pim_gemm_int_launch(const void* w, const void* x, const float* ws,
 
 // out[b, h] = sum_w f32(X[b, w]) * f32(W[h, w]), float32 sums.  w:
 // fp8-e4m3 bits (H, W); x: fp8-e4m3 (x_bytes 1) or bf16 (x_bytes 2) bits,
-// (B, W).
+// (B, W).  vec 1 (both 16-byte aligned, W % 16 == 0): the tensor-core
+// kernel; vec 0: the byte-wise one.
 int pim_gemm_fp_launch(const void* w, const void* x, float* out, int B,
                        int H, long long W, int x_bytes, int vec,
                        void* stream) {

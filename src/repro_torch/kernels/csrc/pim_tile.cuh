@@ -1,6 +1,7 @@
 // Device code shared by the PIM-tile GEMV and GEMM kernels (pim_gemv.cu,
 // pim_gemm.cu): how one warp takes the dot products of one weight row
-// with up to NB activation rows.
+// with up to NB activation rows, and (at the end) the tensor-core tile
+// layout, decoders and MMA of the fp GEMM.
 //
 // Layout: weights are row-major (H, row_bytes); int4 rows hold two signed
 // nibbles per byte, the low nibble being the even column.  Activations
@@ -322,6 +323,72 @@ __device__ __forceinline__ float dequant(uint32_t acc, float ws) {
 
 inline int grid_for(int rows) {
   return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+}
+
+// ---- tensor-core tiles: mma.sync m16n8k16 with the batch as N ------------
+//
+// Weight rows are M (16 per tile), batch rows are N (8 per tile).  In
+// m16n8k16 lane (g = lane / 4, t = lane % 4) holds A at rows g and g + 8,
+// B at column g, and both at the K slots {2t, 2t+1, 2t+8, 2t+9}; C holds
+// rows g and g + 8 at columns 2t and 2t + 1.  A and B share the K slots,
+// so the K order may be relabelled freely: lane (g, t) loads 16
+// contiguous columns c + 16t ... c + 16t + 15 of weight rows g and g + 8
+// and of batch row g, and 32-bit word s of those 16 (columns c + 16t + 4s
+// ... + 4s + 3) feeds MMA step s: its low column pair takes the slots
+// {2t, 2t+1}, its high pair {2t+8, 2t+9}.  Four lanes then cover 64
+// columns per step, four steps per 16-byte load, and no shared memory
+// is needed to reshuffle anything.
+//
+// Decoding keeps every value exact: e4m3 -> f16 is exact (cvt.f16x2.e4m3x2,
+// NaN stays NaN), and so is f16 -> f32 -> bf16 for an e4m3 value (at most
+// 4 significant bits, exponents 2^-9 ... 2^8).  Products of two such
+// values, or of e4m3 and bf16, are exact in the MMA; only the order of
+// the float32 sums differs from a scalar loop.
+
+// 16 bytes, streamed (evict-first), asking L2 to fetch the whole
+// 256-byte block around them from device memory at once.
+__device__ __forceinline__ int4 ld_stream_256(const void* p) {
+  int4 v;
+  asm volatile("ld.global.cs.L2::256B.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// Two e4m3 bytes (the low 16 bits) -> f16x2, the low byte in the low half.
+__device__ __forceinline__ uint32_t e4m3x2_f16x2(uint32_t pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+}
+
+// Two e4m3 bytes -> bf16x2, through f16 and f32 (exact; NaN stays NaN).
+__device__ __forceinline__ uint32_t e4m3x2_bf16x2(uint32_t pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
+  const __nv_bfloat162_raw b =
+      __float22bfloat162_rn(__half22float2(__half2(h)));
+  return static_cast<uint32_t>(b.x) | (static_cast<uint32_t>(b.y) << 16);
+}
+
+// d += a . b for one m16n8k16 tile, float32 accumulators; BF16 picks the
+// bf16 operand type, else f16.
+template <bool BF16>
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  if constexpr (BF16) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 }  // namespace pim

@@ -3,10 +3,14 @@
 The serving hot path is a batch of GEMVs, one token per active request
 against the same weight matrix: ``(B, W) x (H, W) -> (B, H)``.  The TPU
 kernels this replaces (``repro/kernels/pim_gemm.py``) reuse one
-activation block across every H tile.  On the card one warp owns one
-weight row and keeps up to 8 batch rows' sums in registers, so each
-16-byte weight load feeds 8 rows; it loops over batch tiles of 8, so any
-B works without padding.
+activation block across every H tile.  On the card the int GEMM gives
+one warp one weight row and keeps up to 8 batch rows' sums in registers,
+so each 16-byte weight load feeds 8 rows; it loops over batch tiles of
+8, so any B works without padding.  The fp GEMM runs on the tensor
+cores (``mma.sync`` m16n8k16, weight rows as M, the batch as N) when
+its operands are 16-byte aligned and W % 16 == 0, and byte by byte
+otherwise: :func:`fp_variant` makes that choice by shape and alignment
+alone, and ``FP_VARIANT_LAUNCHES`` counts each variant's launches.
 
 Plain versions, dispatch and counting follow ``pim_gemv.py``.
 """
@@ -20,6 +24,8 @@ from .ref import int_matmul, unpack_w4
 
 # Kernel launches so far, by kernel (the plain versions never count).
 LAUNCHES = {"pim_gemm_int": 0, "pim_gemm_fp": 0}
+# pim_gemm_fp's launches by kernel variant (see fp_variant).
+FP_VARIANT_LAUNCHES = {"mma": 0, "bytes": 0}
 
 
 def _check_int(wq, xb_q, w_scale, w_bits) -> torch.device:
@@ -90,6 +96,14 @@ def _check_fp(w_fp8, xb) -> torch.device:
     return dev
 
 
+def fp_variant(w_fp8: torch.Tensor, xb: torch.Tensor) -> str:
+    """The ``pim_gemm_fp`` kernel these operands take on the card:
+    ``"mma"`` (tensor-core tiles, 16-byte loads) when both are 16-byte
+    aligned and the width is a multiple of 16, else ``"bytes"`` (one
+    byte at a time)."""
+    return "mma" if vector_ok(w_fp8.shape[1], w_fp8, xb) else "bytes"
+
+
 def pim_gemm_fp_plain(w_fp8, xb) -> torch.Tensor:
     """The fp GEMM in torch ops: f32 operands, f32 sums."""
     return xb.to(torch.float32) @ w_fp8.to(torch.float32).T
@@ -111,10 +125,12 @@ def pim_gemm_fp(w_fp8: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, h), dtype=torch.float32, device=dev)
     if b == 0 or h == 0:
         return out
+    variant = fp_variant(w_fp8, xb)
     with torch.cuda.device(dev):
         build.launch("pim_gemm_fp_launch", w_fp8.data_ptr(), xb.data_ptr(),
                      out.data_ptr(), b, h, w, FP_X_DTYPES[xb.dtype],
-                     vector_ok(w, w_fp8, xb),
+                     int(variant == "mma"),
                      torch.cuda.current_stream().cuda_stream)
     LAUNCHES["pim_gemm_fp"] += 1
+    FP_VARIANT_LAUNCHES[variant] += 1
     return out

@@ -292,6 +292,55 @@ def test_fp8_nan_and_saturation_on_card(dev, dtype):
                            ops.pim_linear(torch.from_numpy(x), cpu).isnan())
 
 
+def fp_gemm_operands(rng, b, h, w, x_dtype, dev):
+    """fp8 weights (H, W) and fp8 / bf16 activations (B, W) with a +-448
+    weight row, a NaN weight, and a NaN and a +-448 activation."""
+    wf = rng.standard_normal((h, w)).astype(np.float32) * 3.0
+    wf[h // 2] = np.where(np.arange(w) % 2, 448.0, -448.0)
+    if h > 2:
+        wf[h - 1, w // 2] = np.nan
+    xf = rng.standard_normal((b, w)).astype(np.float32) * 3.0
+    xf[b - 1, w - 1] = np.nan
+    xf[0, 0] = 448.0 if b > 1 else xf[0, 0]
+    w8 = ref.to_e4m3fn(torch.from_numpy(wf)).to(dev)
+    xt = torch.from_numpy(xf)
+    x = (ref.to_e4m3fn(xt) if x_dtype == torch.float8_e4m3fn
+         else xt.to(x_dtype)).to(dev)
+    return w8, x
+
+
+@pytest.mark.parametrize("w", [16, 48, 64, 4128, 4096])
+@pytest.mark.parametrize("x_dtype", [torch.float8_e4m3fn, torch.bfloat16],
+                         ids=["fp8", "bf16"])
+def test_gemm_fp_tensor_core_edges(dev, x_dtype, w):
+    """The tensor-core fp GEMM against its plain version on every edge
+    of its tiles: batch rows past 8 and 16, weight rows past 16 and 32,
+    widths that are not multiples of the 128-column span, NaN and +-448;
+    aligned operands take the MMA variant, misaligned views the
+    byte-wise one."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(w)
+    for b in (1, 2, 7, 8, 9, 17):
+        for h in (1, 15, 16, 17, 130):
+            w8, x = fp_gemm_operands(rng, b, h, w, x_dtype, dev)
+            variants = dict(pim_gemm.FP_VARIANT_LAUNCHES)
+            assert pim_gemm.fp_variant(w8, x) == "mma"
+            out = pim_gemm.pim_gemm_fp(w8, x)
+            assert pim_gemm.FP_VARIANT_LAUNCHES == dict(
+                variants, mma=variants["mma"] + 1)
+            want = pim_gemm.pim_gemm_fp_plain(w8, x)
+            torch.cuda.synchronize()
+            smoke.pim_error("pim_gemm_fp", out, want, (w8, x))
+            assert out.isnan().any()               # the NaN reached it
+    w8, x = fp_gemm_operands(rng, 9, 17, w, x_dtype, dev)
+    w8, x = smoke.misaligned(w8), smoke.misaligned(x)
+    variants = dict(pim_gemm.FP_VARIANT_LAUNCHES)
+    assert pim_gemm.fp_variant(w8, x) == "bytes"
+    held_to_plain("pim_gemm_fp", w8, x)
+    assert pim_gemm.FP_VARIANT_LAUNCHES == dict(
+        variants, bytes=variants["bytes"] + 1)
+
+
 def test_prepare_weights_on_card_gives_the_cpu_bytes(dev):
     rng = np.random.default_rng(3)
     wf = (rng.standard_normal((300, 512)) * 0.02).astype(np.float32)
@@ -317,6 +366,7 @@ def test_granite_8b_linear_fixture_on_card(dev):
     smoke = _chip_smoke()
     fixture = json.loads((GOLDEN / "torch_pim_linear.json").read_text())
     before = {name: mod.LAUNCHES[name] for name, mod in PIM.items()}
+    variants = dict(pim_gemm.FP_VARIANT_LAUNCHES)
     for index, site in enumerate(fixture["sites"]):
         wts, acts = smoke.site_inputs(fixture["seed"], index, site["h"],
                                       site["w"])
@@ -331,3 +381,7 @@ def test_granite_8b_linear_fixture_on_card(dev):
                     fixture["fp_rel_tol"]) is None, key
     assert all(mod.LAUNCHES[name] > before[name]
                for name, mod in PIM.items())
+    # Every full-width fp GEMM took the tensor-core variant.
+    assert pim_gemm.FP_VARIANT_LAUNCHES == dict(
+        variants, mma=variants["mma"] + pim_gemm.LAUNCHES["pim_gemm_fp"]
+        - before["pim_gemm_fp"])

@@ -167,6 +167,29 @@ def test_gemm_fp_matches_jax(act):
                                np.asarray(jref.ref_gemm_fp(w8, xb)), **FP_TOL)
 
 
+@pytest.mark.parametrize("b,h,w", [(9, 17, 48), (17, 33, 4128), (2, 15, 16)])
+@pytest.mark.parametrize("act", ["fp8", "bf16"])
+def test_gemm_fp_tile_edges_match_jax(b, h, w, act):
+    """The shapes at the edges of the card kernel's tiles (batch past 8
+    and 16, rows past a 16-row tile, widths ending inside a 128-column
+    span), with a +-448 weight row and a NaN activation, through the
+    port's wrapper and the JAX package's kernel."""
+    rng = np.random.default_rng(b * h + w)
+    wf = (rng.standard_normal((h, w)) * 3.0).astype(np.float32)
+    wf[h // 2] = np.where(np.arange(w) % 2, 448.0, -448.0)
+    xf = (rng.standard_normal((b, w)) * 3.0).astype(np.float32)
+    xf[b - 1, w // 3] = np.nan
+    w8 = jnp.asarray(wf).astype(jnp.float8_e4m3fn)
+    xb = jnp.asarray(xf).astype(jnp.float8_e4m3fn if act == "fp8"
+                                else jnp.bfloat16)
+    want = np.asarray(jax_gemm_fp(w8, xb, block=(8, 128, 256),
+                                  interpret=True))
+    got = pim_gemm.pim_gemm_fp(t(w8), t(xb)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[b - 1]).all()
+    np.testing.assert_allclose(got, want, **FP_TOL)
+
+
 def test_int4_packing_matches_jax():
     q = np.arange(-8, 8, dtype=np.int8)[None].repeat(3, 0)
     q = np.concatenate([q, q[:, ::-1]], axis=1)
@@ -279,6 +302,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="uint8"):
         ops.QuantWeights.from_numpy("FP_W8A8", np.zeros((4, 32), np.int8),
                                     None, (4, 32), device="cpu")
+
+
+@pytest.mark.parametrize("w,x_dtype,skew,want", [
+    (4096, torch.float8_e4m3fn, None, "mma"),
+    (4096, torch.bfloat16, None, "mma"),
+    (4128, torch.bfloat16, None, "mma"),
+    (16, torch.float8_e4m3fn, None, "mma"),
+    (200, torch.float8_e4m3fn, None, "bytes"),
+    (4104, torch.bfloat16, None, "bytes"),
+    (4096, torch.float8_e4m3fn, "w", "bytes"),
+    (4096, torch.bfloat16, "x", "bytes"),
+])
+def test_fp_gemm_variant_is_chosen_by_shape_and_alignment(w, x_dtype, skew,
+                                                          want):
+    """The tensor-core fp GEMM takes 16-byte aligned operands whose width
+    is a multiple of 16; everything else goes byte by byte.  On CPU
+    tensors the wrapper runs the plain version and counts nothing."""
+    w8 = torch.zeros((17, w)).to(torch.float8_e4m3fn)
+    xb = torch.zeros((9, w)).to(x_dtype)
+    if skew == "w":
+        w8 = chip_smoke.misaligned(w8)
+    if skew == "x":
+        xb = chip_smoke.misaligned(xb)
+    assert pim_gemm.fp_variant(w8, xb) == want
+    before = dict(pim_gemm.FP_VARIANT_LAUNCHES)
+    out = pim_gemm.pim_gemm_fp(w8, xb)
+    assert out.shape == (9, 17)
+    assert pim_gemm.FP_VARIANT_LAUNCHES == before
 
 
 # ---------------------------------------------------------------------
