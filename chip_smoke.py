@@ -7,7 +7,7 @@ Phases (any failure exits nonzero before the last line):
 
 1. The card (``nvidia-smi``) and the kernel build (``nvcc`` from the
    sources under ``src/repro_torch/kernels/csrc``), with the registers
-   and spills ptxas reports for the tensor-core fp GEMM kernels.
+   and spills ptxas reports for the tensor-core fp and int GEMM kernels.
 2. The lane-scan kernel against its plain torch version on the card:
    fuzzed lanes at every instantiated bank count (ragged lengths,
    out-of-range opcodes and banks, wrapping timings), the probe lane,
@@ -26,9 +26,10 @@ Phases (any failure exits nonzero before the last line):
    versions on the card, on the operands ``pim_linear`` hands them:
    fuzzed and ragged shapes, all 7 dtypes, batch 1 (GEMV) and 1, 3, 8,
    9 (GEMM); int4 nibbles and int8/int16 extremes, the int32-wraparound
-   case, fp8 NaN and saturation, misaligned views (the byte-wise
-   path), and the tensor-core fp GEMM's tile edges (batch 2, 7, 17;
-   rows past a 16-row tile; widths ending inside a 128-column span).
+   cases (one through each GEMM variant's own accumulators), fp8 NaN
+   and saturation, misaligned views (the byte-wise path), and the
+   tensor-core GEMMs' tile edges (batch 2, 7, 17; rows past a 16-row
+   tile; widths ending inside a warp's span).
    Int outputs must be bit-equal; fp outputs within
    ``2 W 2**-24 sum|w x|`` per output, the bound of an f32 sum.
 7. ``granite_8b_linear``, the quantized-linear path at full width, with
@@ -36,9 +37,10 @@ Phases (any failure exits nonzero before the last line):
    ``lm_head`` (8 sites), each weight prepared on the card for all 7
    dtypes and run at batch 1 and 8, must reproduce
    ``tests/golden/torch_pim_linear.json`` (computed by the JAX package).
-   Every fp GEMM there must take the tensor-core variant.  Then each
+   Every GEMM there must take the tensor-core variant.  Then each
    kernel's time at ``lm_head``, beside its bound, its plain version
-   and, where one exists, one PyTorch call of the same function.
+   and, where one exists, one PyTorch call of the same function; and
+   the int GEMM at W8A8, batch 16 (two N tiles), beside ``_int_mm``.
 
 Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
 flushed before every launch, one pair of CUDA events per launch, the
@@ -328,14 +330,49 @@ def pim_kernels_vs_plain(dev, mods: dict, plain: dict) -> dict:
         for xb in (ref.to_e4m3fn(dev_t(xf)), dev_t(xf).to(torch.bfloat16)):
             pim_gemm.pim_gemm_fp(w8, xb)
 
-    # The int32 wraparound: 127 * 32767 * 16384 through pim_linear.
+    # The tensor-core int GEMM's tile edges, every format: rows of
+    # -128 / 127 (int4 -8 / 7) weights and every nibble / byte value,
+    # activations at the int8 / int16 extremes and the byte planes'
+    # edges (-32768, 32767, -1, 0, 255, 256).
+    for b, h, w in ((2, 15, 32), (7, 17, 4128), (9, 130, 4096),
+                    (17, 33, 64), (17, 16, 4128)):
+        for w_bits, a_bits in ((8, 8), (8, 16), (4, 8), (4, 4), (4, 16)):
+            lo, hi = -2 ** (w_bits - 1), 2 ** (w_bits - 1) - 1
+            wq = rng.integers(lo, hi + 1, size=(h, w))
+            wq[h // 2] = np.where(np.arange(w) % 2, hi, lo)
+            wq[h - 1] = np.arange(w) % (hi - lo + 1) + lo
+            wq = dev_t(wq.astype(np.int8))
+            wq = ref.pack_w4(wq) if w_bits == 4 else wq
+            alo, ahi = -2 ** (a_bits - 1), 2 ** (a_bits - 1) - 1
+            xb = rng.integers(alo, ahi + 1, size=(b, w))
+            edge = [alo, ahi, -1, 0] + ([255, 256] if a_bits == 16 else [])
+            xb[b - 1, :len(edge)] = edge
+            xb = dev_t(xb.astype(np.int16 if a_bits == 16 else np.int8))
+            check(pim_gemm.int_variant(wq, xb) == "mma",
+                  f"int GEMM edge {b}x{h}x{w} not on the MMA variant")
+            pim_gemm.pim_gemm_int(wq, xb, dev_t(rng.uniform(
+                0.5, 2.0, h).astype(np.float32)), 0.37, w_bits=w_bits)
+
+    # The int32 wraparound: 127 * 32767 * 16384 through pim_linear (GEMV
+    # and a B = 8 GEMM on the MMA variant, where the byte planes' sums
+    # are combined), and W8A8 over 1.5 M columns, where each warp's share
+    # passes 2^31 inside the MMA's own s32 accumulators.
     qw = ops.prepare_weights(torch.full((8, 16384), 0.5, device=dev),
                              "W8A16", device=dev)
     x = torch.full((16384,), 3.0, device=dev)
-    y = ops.pim_linear(x, qw)
     ws = pim_gemv.row_scale(qw.scale, ref.quantize_acts(x, 16)[1])
-    check(torch.equal(y, torch.tensor(-538951680.0, device=dev) * ws),
-          f"int32 wraparound: {y[:2].tolist()}")
+    want = torch.tensor(-538951680.0, device=dev) * ws
+    xq = ref.quantize_acts(x.expand(8, -1), 16)[0].contiguous()
+    check(pim_gemm.int_variant(qw.q, xq) == "mma",
+          "the wraparound GEMM is not on the MMA variant")
+    for y in (ops.pim_linear(x, qw), ops.pim_linear(x.expand(8, -1), qw)):
+        check(torch.equal(y, want.expand_as(y)),
+              f"int32 wraparound: {y.reshape(-1)[:2].tolist()}")
+    wq = torch.full((16, 3 << 19), 127, dtype=torch.int8, device=dev)
+    xq = torch.full((8, 3 << 19), -128, dtype=torch.int8, device=dev)
+    y = pim_gemm.pim_gemm_int(wq, xq, torch.ones(16, device=dev), 1.0)
+    check(bool((y == float(-127 * 128 * (3 << 19) % (1 << 32))).all()),
+          f"int32 wraparound in the MMA accumulators: {y[0, :2].tolist()}")
 
     # fp8 saturation and NaN: weights at +-448 and past the range,
     # activations at 448, 464 (-> 448), 464.01 and 1000 (-> NaN), inf, NaN.
@@ -391,8 +428,10 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
     real = patch_pim_kernels(mods, keep_lm_head)
     for name, mod in mods.items():
         mod.LAUNCHES[name] = 0
-    for variant in pim_gemm.FP_VARIANT_LAUNCHES:
-        pim_gemm.FP_VARIANT_LAUNCHES[variant] = 0
+    for counts in (pim_gemm.FP_VARIANT_LAUNCHES,
+                   pim_gemm.INT_VARIANT_LAUNCHES):
+        for variant in counts:
+            counts[variant] = 0
     t0 = time.perf_counter()
     for index, site in enumerate(sites):
         wts, acts = site_inputs(fixture["seed"], index, site["h"],
@@ -412,47 +451,66 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
     wall = time.perf_counter() - t0
     restore_pim_kernels(mods, real)
     launches = {name: mod.LAUNCHES[name] for name, mod in mods.items()}
-    variants = dict(pim_gemm.FP_VARIANT_LAUNCHES)
+    variants = {"pim_gemm_fp": dict(pim_gemm.FP_VARIANT_LAUNCHES),
+                "pim_gemm_int": dict(pim_gemm.INT_VARIANT_LAUNCHES)}
     check(all(n > 0 for n in launches.values()),
           f"granite_8b_linear did not launch every kernel: {launches}")
-    check(variants == {"mma": launches["pim_gemm_fp"], "bytes": 0},
-          f"full-width fp GEMMs did not all take the tensor-core kernel: "
-          f"{variants}")
+    for name, counts in variants.items():
+        check(counts == {"mma": launches[name], "bytes": 0},
+              f"full-width {name} calls did not all take the tensor-core "
+              f"kernel: {counts}")
     print(f"[7] granite_8b_linear: {len(fixture['results'])} outputs "
           f"reproduce torch_pim_linear.json; {wall:.2f} s wall, launches "
-          f"{launches}; pim_gemm_fp variants {variants}")
+          f"{launches}; GEMM variants {variants}")
 
     timed = {}
     for (name, dtype), (out, args, kw) in sorted(heavy.items()):
-        w_op, x_op = args[0], args[1]
-        width = x_op.shape[-1]
-        batch = 1 if x_op.dim() == 1 else x_op.shape[0]
-        err = pim_error(name, out, plain[name](*args, **kw), args)
-        fns = {"kernel": lambda: real[name](*args, **kw)}
-        lib = library_call(dtype, w_op, x_op)
-        if lib is not None:
-            fns["library"] = lib
-        t = timed_ms(fns, KERNEL_REPS)      # kernel and library in turns
-        plain_t = timed_ms({"plain": lambda: plain[name](*args, **kw)},
-                           5)["plain"]
-        nbytes = out.numel() * 4 + sum(a.numel() * a.element_size()
-                                       for a in args
-                                       if isinstance(a, torch.Tensor))
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        peak = PEAK_OPS_16BIT if x_op.element_size() == 2 else PEAK_OPS_8BIT
-        ops_ms = 2 * batch * w_op.shape[0] * width / peak * 1e3
-        timed[(name, dtype)] = dict(
-            ms=t["kernel"]["ms"], plain_ms=plain_t["ms"],
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=t["library"]["ms"] if lib else None,
-            max_abs_err=err, batch=batch, bytes=nbytes,
-            spread={k: [v["min_ms"], v["max_ms"]] for k, v in t.items()},
-            launches_timed=KERNEL_REPS)
-        print(f"[7] {name} lm_head {dtype} B={batch}: "
-              f"{json.dumps(timed[(name, dtype)])}")
+        timed[(name, dtype)] = time_kernel(name, dtype, real[name],
+                                           plain[name], out, args, kw)
+    # The int GEMM at batch 16 (two N tiles per pass): lm_head's W8A8
+    # operands with 8 more activation rows.
+    out, args, kw = heavy[("pim_gemm_int", "W8A8")]
+    args = (args[0], torch.cat([args[1], args[1].roll(1, dims=1)]),
+            *args[2:])
+    out = real["pim_gemm_int"](*args, **kw)
+    timed[("pim_gemm_int", "W8A8/b16")] = time_kernel(
+        "pim_gemm_int", "W8A8", real["pim_gemm_int"], plain["pim_gemm_int"],
+        out, args, kw)
     return dict(wall=wall, launches=launches, variants=variants,
                 timed=timed)
+
+
+def time_kernel(name: str, dtype: str, kernel, plain, out: torch.Tensor,
+                args: tuple, kw: dict) -> dict:
+    """One timed row of phase 7: the kernel on ``args`` (median of
+    ``KERNEL_REPS``, in turns with its library call), its plain version,
+    its bound and its largest difference from plain."""
+    w_op, x_op = args[0], args[1]
+    width = x_op.shape[-1]
+    batch = 1 if x_op.dim() == 1 else x_op.shape[0]
+    err = pim_error(name, out, plain(*args, **kw), args)
+    fns = {"kernel": lambda: kernel(*args, **kw)}
+    lib = library_call(dtype, w_op, x_op)
+    if lib is not None:
+        fns["library"] = lib
+    t = timed_ms(fns, KERNEL_REPS)          # kernel and library in turns
+    plain_t = timed_ms({"plain": lambda: plain(*args, **kw)}, 5)["plain"]
+    nbytes = out.numel() * 4 + sum(a.numel() * a.element_size()
+                                   for a in args
+                                   if isinstance(a, torch.Tensor))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = PEAK_OPS_16BIT if x_op.element_size() == 2 else PEAK_OPS_8BIT
+    ops_ms = 2 * batch * w_op.shape[0] * width / peak * 1e3
+    row = dict(
+        ms=t["kernel"]["ms"], plain_ms=plain_t["ms"],
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=t["library"]["ms"] if lib else None,
+        max_abs_err=err, batch=batch, bytes=nbytes,
+        spread={k: [v["min_ms"], v["max_ms"]] for k, v in t.items()},
+        launches_timed=KERNEL_REPS)
+    print(f"[7] {name} lm_head {dtype} B={batch}: {json.dumps(row)}")
+    return row
 
 
 def library_call(dtype: str, w_op: torch.Tensor, x_op: torch.Tensor):
@@ -518,13 +576,19 @@ def main() -> int:
         print(f"    ptxas {source}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
               f"bytes {spills}")
-    mma_ptxas = ptxas_kernels(build.BUILD_INFO["logs"].get("pim_gemm.cu", ""),
-                              r"gemm_fp_mma_kernel")
-    for k in mma_ptxas:
-        print(f"    ptxas {k['name']} (XBYTES, NT): {k['registers']} "
-              f"registers, {k['spill_bytes']} spill bytes")
-    check(not build.BUILD_INFO["logs"] or len(mma_ptxas) == 4,
-          f"ptxas reported {len(mma_ptxas)} tensor-core fp GEMM kernels")
+    gemm_log = build.BUILD_INFO["logs"].get("pim_gemm.cu", "")
+    mma_ptxas = {"pim_gemm_fp": ptxas_kernels(gemm_log, r"gemm_fp_mma_kernel"),
+                 "pim_gemm_int": ptxas_kernels(gemm_log,
+                                               r"gemm_int_mma_kernel")}
+    for name, want, params in (("pim_gemm_fp", 4, "XBYTES, NT"),
+                               ("pim_gemm_int", 8,
+                                "WBITS, XBYTES, NT, MT, HF, WARPS")):
+        for k in mma_ptxas[name]:
+            print(f"    ptxas {k['name']} ({params}): {k['registers']} "
+                  f"registers, {k['spill_bytes']} spill bytes")
+        check(not gemm_log or len(mma_ptxas[name]) == want,
+              f"ptxas reported {len(mma_ptxas[name])} tensor-core {name} "
+              f"kernels, not {want}")
 
     # ---- 2. kernel == plain on the card ---------------------------------
     rng = np.random.default_rng(0)
@@ -805,8 +869,8 @@ def main() -> int:
                                 "padded to 16"),
             "granite_8b_linear_wall_s": linear["wall"],
             "by_dtype": by_dtype,
-            **({"variants": linear["variants"], "ptxas": mma_ptxas}
-               if name == "pim_gemm_fp" else {})})
+            **({"variants": linear["variants"][name],
+                "ptxas": mma_ptxas[name]} if name in mma_ptxas else {})})
 
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{

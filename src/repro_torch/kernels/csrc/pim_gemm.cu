@@ -11,13 +11,31 @@
 // the product does 2 B operations per weight byte, far below the ~295
 // per byte where even the bf16 tensor cores would become the limit, so
 // streaming the weights once is the cost.  What must not bind first is
-// the work per weight byte on the SM.
+// the work per weight byte on the SM, so both GEMMs multiply on the
+// tensor cores.
 //
-// int (gemm_int_kernel): the GEMV's design -- one warp per weight row,
-// 16-byte streaming loads, four in flight per lane, int4 unpacked in
-// registers -- with up to 8 batch rows' sums in each lane's registers.
-// Each chunk costs 8 rows of dp4a / scalar MACs and 8 re-reads of the
-// activations through L1, which limits it at B = 8.
+// int (gemm_int_mma_kernel): exact 8-bit integer tiles, mma.sync
+// m16n8k32 .s8 with s32 accumulators, on the fp kernel's layout below
+// (8 warps splitting the width in steps of 128 columns, the batch as N,
+// 8 rows per tile, two N tiles per pass for B in 9-16), with one M tile
+// of 16 weight rows per block for 8-bit weights and two for int4, whose
+// rows are half as many bytes.  A lane loads 16 bytes of weight rows g
+// and g + 8 and the matching activation bytes of batch row g; each MMA
+// step takes 8 of its columns.
+// W8A8 feeds the bytes as they are: two MMAs per 16-byte load and no
+// decode.  Int4 weights are unpacked in registers to int8 in column
+// order (a byte perm and a sign extension per 4 weights).  int16
+// activations have no MMA: each is split x = 256 hi + lo into its signed
+// high and unsigned low byte (a byte perm each), two MMAs (.s8.s8 and
+// .s8.u8) take the same weight fragment, and the sums combine as
+// (hi << 8) + lo in uint32_t.  Without .satfinite every s32 sum wraps
+// mod 2^32 like the TPU's int32 accumulator, and the 8 warps' partial
+// tiles are summed as uint32_t through shared memory, so every result is
+// bit-exact and independent of the order of the sums.  The flush is the
+// TPU kernel's: float32(int32 sum) times the row scale.  Other tile
+// shapes, timed by tools/int_gemm_variants.py on an H100 at lm_head,
+// B = 8: with 8-bit weights none of nine was more than 3 % faster; with
+// int4 each with one M tile per block was 1-29 % slower than the default.
 //
 // fp (gemm_fp_mma_kernel): the multiply moves to the tensor cores, so
 // the work per weight byte falls from 8 scalar FMAs plus decode and L1
@@ -39,16 +57,17 @@
 // (sharing each activation fragment), four, 16 warps, L2 prefetches of
 // the next span and 256-column spans all measured slower on the card.
 //
-// Operands that are not 16-byte aligned, or a width that is not a
-// multiple of 16, take gemm_fp_kernel<XBYTES>: one warp per row,
-// one byte at a time.  The wrapper chooses by shape and alignment.
+// Operands that are not 16-byte aligned, or weight rows that are not a
+// multiple of 16 bytes, take gemm_int_kernel / gemm_fp_kernel: one warp
+// per weight row, one byte at a time, up to 8 batch rows' sums in each
+// lane's registers.  The wrapper chooses by shape and alignment.
 #include "pim_tile.cuh"
 
 namespace {
 
 using namespace pim;
 
-template <int WBITS, int XBYTES, bool VEC>
+template <int WBITS, int XBYTES>
 __global__ void __launch_bounds__(kThreads)
     gemm_int_kernel(const uint8_t* __restrict__ w,
                     const typename IntOp<WBITS, XBYTES>::X* __restrict__ x,
@@ -62,7 +81,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int b0 = 0; b0 < B; b0 += kBatchTile) {
     const int nb = min(kBatchTile, B - b0);
     uint32_t acc[kBatchTile] = {};
-    row_dot<IntOp<WBITS, XBYTES>, kBatchTile, VEC>(
+    row_dot<IntOp<WBITS, XBYTES>, kBatchTile, false>(
         w + h * row_bytes, row_bytes, x + b0 * W, W, nb, acc);
 #pragma unroll
     for (int b = 0; b < kBatchTile; ++b) {
@@ -200,19 +219,183 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
 }
 
+// MMA step s of a lane's 16 weight bytes covers its columns 8s ... 8s+7,
+// in natural order: a0 / a1 (rows g, g + 8) and b0 hold columns 8s ...
+// 8s+3, a2 / a3 and b1 columns 8s+4 ... 8s+7.  W8: weight words 2s and
+// 2s+1 as they are.  W4: weight word s holds the eight nibbles (the low
+// one the even column); __byte_perm puts each column's nibble in the low
+// half of its own byte, in column order, and nibs_lo4 sign-extends them.
+template <int WBITS>
+__device__ __forceinline__ void int_a_frag(const int4& r0, const int4& r1,
+                                           int s, uint32_t (&a)[4]) {
+  if constexpr (WBITS == 8) {
+    a[0] = word(r0, 2 * s);
+    a[1] = word(r1, 2 * s);
+    a[2] = word(r0, 2 * s + 1);
+    a[3] = word(r1, 2 * s + 1);
+  } else {
+    const uint32_t w0 = word(r0, s), w1 = word(r1, s);
+    a[0] = nibs_lo4(__byte_perm(w0, w0 >> 4, 0x5140));
+    a[1] = nibs_lo4(__byte_perm(w1, w1 >> 4, 0x5140));
+    a[2] = nibs_lo4(__byte_perm(w0, w0 >> 4, 0x7362));
+    a[3] = nibs_lo4(__byte_perm(w1, w1 >> 4, 0x7362));
+  }
+}
+
+// 32-bit word i of a lane's activation pieces (16 bytes each).
+template <int N>
+__device__ __forceinline__ uint32_t piece_word(const int4 (&p)[N], int i) {
+  return word(p[i / 4], i % 4);
+}
+
+// NT: N tiles (8 batch rows each) per pass over the weights.  MT: M
+// tiles (16 weight rows each) per block; HF: 16-byte loads per weight row
+// and lane in each warp step, which covers 64 HF bytes of the rows; WARPS:
+// warps splitting the width.  The defaults make a warp step cover 128
+// columns: for 8-bit weights two loads per row and lane of one M tile, as
+// in the fp kernel; int4 rows hold those columns in 64 bytes, so a block
+// takes two M tiles and each activation fragment feeds both.  The other
+// values are there for tools/int_gemm_variants.py, which times them.
+template <int WBITS, int XBYTES, int NT, int MT = 8 / WBITS,
+          int HF = WBITS / 4, int WARPS = kMmaWarps>
+__global__ void __launch_bounds__(WARPS * kWarp, 1)
+    gemm_int_mma_kernel(const uint8_t* __restrict__ w,
+                        const uint8_t* __restrict__ x,
+                        const float* __restrict__ ws, float* __restrict__ out,
+                        int B, int H, long long W) {
+  constexpr int kCols = 8 / WBITS;           // columns per weight byte
+  constexpr int kSteps = 2 * kCols;          // MMA steps per 16 weight bytes
+  constexpr int kPieces = kCols * XBYTES;    // 16 B activation pieces per 16
+  constexpr int kSpan = 64 * HF;             // weight bytes per warp step
+  __shared__ uint32_t part[WARPS][MT * NT * 4][kWarp];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kMmaRows * MT;
+  const long long row_bytes = W * WBITS / 8;
+  const long long spans = (row_bytes + kSpan - 1) / kSpan;
+  const int4 zero = make_int4(0, 0, 0, 0);
+
+  for (int b0 = 0; b0 < B; b0 += 8 * NT) {
+    uint32_t acc[MT][NT][XBYTES][4] = {};    // A16: [hi, lo] byte planes
+    for (long long sp = warp; sp < spans; sp += WARPS) {
+      const long long off0 = sp * kSpan + 16 * t;
+      int4 wv[MT][2][HF];                    // [M tile][row g, g + 8][load]
+      int4 xv[NT][HF][kPieces];              // [N tile][load][16 B piece]
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int hf = 0; hf < HF; ++hf) {
+            const long long row = row0 + kMmaRows * m + 8 * r + g;
+            const long long off = off0 + 64 * hf;
+            wv[m][r][hf] = row < H && off < row_bytes
+                               ? ld_stream_256(w + row * row_bytes + off)
+                               : zero;
+          }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < HF; ++hf)
+#pragma unroll
+          for (int p = 0; p < kPieces; ++p) {
+            const long long b = b0 + 8 * nt + g;
+            const long long off = off0 + 64 * hf;
+            xv[nt][hf][p] =
+                b < B && off < row_bytes
+                    ? __ldg(reinterpret_cast<const int4*>(
+                                x + (b * W + off * kCols) * XBYTES) + p)
+                    : zero;
+          }
+#pragma unroll
+      for (int hf = 0; hf < HF; ++hf)
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {   // columns 8s ... 8s+7
+          uint32_t a[MT][4];
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            int_a_frag<WBITS>(wv[m][0][hf], wv[m][1][hf], s, a[m]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (NT > 1 && b0 + 8 * nt >= B) continue;  // warp-uniform
+            const int4(&xp)[kPieces] = xv[nt][hf];
+            if constexpr (XBYTES == 1) {     // activation words 2s, 2s+1
+              const uint32_t x0 = piece_word(xp, 2 * s);
+              const uint32_t x1 = piece_word(xp, 2 * s + 1);
+#pragma unroll
+              for (int m = 0; m < MT; ++m)
+                mma_16832_s8<true>(acc[m][nt][0], a[m], x0, x1);
+            } else {
+              // int16 x = 256 hi + lo, hi the signed high byte, lo the
+              // unsigned low one.  The step's columns 8s ... 8s+3 (b0)
+              // are activation words 4s, 4s+1, and 8s+4 ... 8s+7 (b1)
+              // words 4s+2, 4s+3: an 8-bit weight word q (columns 4q ...
+              // 4q+3) pairs with activation words 2q and 2q+1.
+              const uint32_t x0 = piece_word(xp, 4 * s);
+              const uint32_t x1 = piece_word(xp, 4 * s + 1);
+              const uint32_t x2 = piece_word(xp, 4 * s + 2);
+              const uint32_t x3 = piece_word(xp, 4 * s + 3);
+              const uint32_t hi0 = __byte_perm(x0, x1, 0x7531);
+              const uint32_t hi1 = __byte_perm(x2, x3, 0x7531);
+              const uint32_t lo0 = __byte_perm(x0, x1, 0x6420);
+              const uint32_t lo1 = __byte_perm(x2, x3, 0x6420);
+#pragma unroll
+              for (int m = 0; m < MT; ++m) {
+                mma_16832_s8<true>(acc[m][nt][0], a[m], hi0, hi1);
+                mma_16832_s8<false>(acc[m][nt][1], a[m], lo0, lo1);
+              }
+            }
+          }
+        }
+    }
+
+    // x = 256 hi + lo, so the sum is 256 sum(hi) + sum(lo), mod 2^32;
+    // then the block's partial tiles, summed in warp order.
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t v = acc[m][nt][0][j];
+          if constexpr (XBYTES == 2) v = (v << 8) + acc[m][nt][1][j];
+          part[warp][(m * NT + nt) * 4 + j][lane] = v;
+        }
+    __syncthreads();
+    for (int i = threadIdx.x; i < MT * NT * 4 * kWarp; i += WARPS * kWarp) {
+      const int reg = i / kWarp, ln = i % kWarp;
+      uint32_t sum = part[0][reg][ln];
+#pragma unroll
+      for (int k = 1; k < WARPS; ++k) sum += part[k][reg][ln];
+      const int m = reg / (4 * NT), nt = reg / 4 % NT, j = reg % 4;
+      const long long h = row0 + kMmaRows * m + ln / 4 + 8 * (j / 2);
+      const long long b = b0 + 8 * nt + 2 * (ln % 4) + j % 2;
+      if (h < H && b < B) out[b * H + h] = dequant(sum, ws[h]);
+    }
+    __syncthreads();                         // part is reused next pass
+  }
+}
+
 template <int WBITS, int XBYTES>
 cudaError_t launch_int(const void* w, const void* x, const float* ws,
                        float* out, int B, int H, long long W, bool vec,
                        cudaStream_t s) {
-  using X = typename IntOp<WBITS, XBYTES>::X;
   const auto* wp = static_cast<const uint8_t*>(w);
-  const auto* xp = static_cast<const X*>(x);
-  if (vec)
-    gemm_int_kernel<WBITS, XBYTES, true>
-        <<<grid_for(H), kThreads, 0, s>>>(wp, xp, ws, out, B, H, W);
+  if (!vec) {
+    gemm_int_kernel<WBITS, XBYTES><<<grid_for(H), kThreads, 0, s>>>(
+        wp, static_cast<const typename IntOp<WBITS, XBYTES>::X*>(x), ws, out,
+        B, H, W);
+    return cudaGetLastError();
+  }
+  const auto* xp = static_cast<const uint8_t*>(x);
+  const int rows = kMmaRows * 8 / WBITS;       // the kernel's M tiles
+  const int grid = (H + rows - 1) / rows;
+  if (B <= 8)
+    gemm_int_mma_kernel<WBITS, XBYTES, 1><<<grid, kMmaThreads, 0, s>>>(
+        wp, xp, ws, out, B, H, W);
   else
-    gemm_int_kernel<WBITS, XBYTES, false>
-        <<<grid_for(H), kThreads, 0, s>>>(wp, xp, ws, out, B, H, W);
+    gemm_int_mma_kernel<WBITS, XBYTES, 2><<<grid, kMmaThreads, 0, s>>>(
+        wp, xp, ws, out, B, H, W);
   return cudaGetLastError();
 }
 
@@ -243,8 +426,10 @@ extern "C" {
 // out[b, h] = f32(sum_w X[b, w] * W[h, w] mod 2^32) * ws[h].  w: int8
 // (H, W) for w_bits 8, packed int4 (H, W/2) for w_bits 4; x: int8
 // (x_bytes 1) or int16 (x_bytes 2), (B, W); ws: float32 (H,); out: float32
-// (B, H).  vec as in pim_gemv_int_launch.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for an unsupported format.
+// (B, H).  vec 1 (both 16-byte aligned, row bytes % 16 == 0): the
+// tensor-core kernel; vec 0: the byte-wise one.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
+// unsupported format.
 int pim_gemm_int_launch(const void* w, const void* x, const float* ws,
                         float* out, int B, int H, long long W, int w_bits,
                         int x_bytes, int vec, void* stream) {

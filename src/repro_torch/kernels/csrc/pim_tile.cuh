@@ -1,7 +1,7 @@
 // Device code shared by the PIM-tile GEMV and GEMM kernels (pim_gemv.cu,
 // pim_gemm.cu): how one warp takes the dot products of one weight row
 // with up to NB activation rows, and (at the end) the tensor-core tile
-// layout, decoders and MMA of the fp GEMM.
+// layout, decoders and MMAs of the fp and int GEMMs.
 //
 // Layout: weights are row-major (H, row_bytes); int4 rows hold two signed
 // nibbles per byte, the low nibble being the even column.  Activations
@@ -387,6 +387,40 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
         "{%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// ---- tensor-core int tiles: mma.sync m16n8k32 on 8-bit integers ----------
+//
+// The same tiles, 32 K slots deep: lane (g, t) holds A at rows g (a0, a2)
+// and g + 8 (a1, a3), B at column g, both at the K slots {4t ... 4t+3}
+// (a0, a1, b0) and {16+4t ... 16+4t+3} (a2, a3, b1), four 8-bit values
+// per register; C as in m16n8k16.  So one 32-bit word of a weight row and
+// one of an activation row, holding the same four columns in the same
+// byte order, fill one register each: the K order is relabelled in
+// registers exactly as for m16n8k16.
+//
+// 8-bit products are exact and the s32 accumulators are added mod 2^32:
+// without .satfinite the MMA does not clamp, so its sums wrap as the
+// TPU's int32 accumulator does, and sums of such sums taken as uint32_t
+// in any order give the same bits.  A is signed; S8B picks a signed B,
+// else unsigned (the low byte plane of an int16 activation).
+template <bool S8B>
+__device__ __forceinline__ void mma_16832_s8(uint32_t (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  if constexpr (S8B) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 }

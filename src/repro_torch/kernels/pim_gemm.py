@@ -3,14 +3,15 @@
 The serving hot path is a batch of GEMVs, one token per active request
 against the same weight matrix: ``(B, W) x (H, W) -> (B, H)``.  The TPU
 kernels this replaces (``repro/kernels/pim_gemm.py``) reuse one
-activation block across every H tile.  On the card the int GEMM gives
-one warp one weight row and keeps up to 8 batch rows' sums in registers,
-so each 16-byte weight load feeds 8 rows; it loops over batch tiles of
-8, so any B works without padding.  The fp GEMM runs on the tensor
-cores (``mma.sync`` m16n8k16, weight rows as M, the batch as N) when
-its operands are 16-byte aligned and W % 16 == 0, and byte by byte
-otherwise: :func:`fp_variant` makes that choice by shape and alignment
-alone, and ``FP_VARIANT_LAUNCHES`` counts each variant's launches.
+activation block across every H tile.  On the card both GEMMs run on
+the tensor cores (``mma.sync``, weight rows as M, the batch as N) when
+their operands are 16-byte aligned and each weight row is a multiple of
+16 bytes: the int GEMM as exact 8-bit integer tiles (int16 activations
+split into two byte planes, int4 weights unpacked in registers), the fp
+GEMM as f16 / bf16 tiles.  Other operands go byte by byte, one warp per
+weight row.  :func:`int_variant` and :func:`fp_variant` make that choice
+by shape and alignment alone, and ``INT_VARIANT_LAUNCHES`` /
+``FP_VARIANT_LAUNCHES`` count each variant's launches.
 
 Plain versions, dispatch and counting follow ``pim_gemv.py``.
 """
@@ -24,7 +25,8 @@ from .ref import int_matmul, unpack_w4
 
 # Kernel launches so far, by kernel (the plain versions never count).
 LAUNCHES = {"pim_gemm_int": 0, "pim_gemm_fp": 0}
-# pim_gemm_fp's launches by kernel variant (see fp_variant).
+# Each GEMM's launches by kernel variant (see int_variant, fp_variant).
+INT_VARIANT_LAUNCHES = {"mma": 0, "bytes": 0}
 FP_VARIANT_LAUNCHES = {"mma": 0, "bytes": 0}
 
 
@@ -44,6 +46,14 @@ def _check_int(wq, xb_q, w_scale, w_bits) -> torch.device:
         raise ValueError(f"w_scale must be ({wq.shape[0]},), got "
                          f"{tuple(w_scale.shape)}")
     return dev
+
+
+def int_variant(wq: torch.Tensor, xb_q: torch.Tensor) -> str:
+    """The ``pim_gemm_int`` kernel these operands take on the card:
+    ``"mma"`` (tensor-core tiles, 16-byte loads) when both are 16-byte
+    aligned and a (packed) weight row is a multiple of 16 bytes (W % 16
+    for int8, W % 32 for int4), else ``"bytes"`` (one byte at a time)."""
+    return "mma" if vector_ok(wq.shape[1], wq, xb_q) else "bytes"
 
 
 def pim_gemm_int_plain(wq, xb_q, w_scale, x_scale, *, w_bits: int = 8
@@ -75,13 +85,14 @@ def pim_gemm_int(wq: torch.Tensor, xb_q: torch.Tensor,
     out = torch.empty((b, h), dtype=torch.float32, device=dev)
     if b == 0 or h == 0:
         return out
+    variant = int_variant(wq, xb_q)
     with torch.cuda.device(dev):
         build.launch("pim_gemm_int_launch", wq.data_ptr(), xb_q.data_ptr(),
                      ws.data_ptr(), out.data_ptr(), b, h, w, w_bits,
-                     INT_X_DTYPES[xb_q.dtype],
-                     vector_ok(wq.shape[1], wq, xb_q),
+                     INT_X_DTYPES[xb_q.dtype], int(variant == "mma"),
                      torch.cuda.current_stream().cuda_stream)
     LAUNCHES["pim_gemm_int"] += 1
+    INT_VARIANT_LAUNCHES[variant] += 1
     return out
 
 

@@ -272,6 +272,24 @@ def test_int32_wraparound_on_card(dev):
     want = torch.tensor(-538951680.0, device=dev) * ws
     assert torch.equal(ops.pim_linear(x, qw), want)
     assert torch.equal(ops.pim_linear(torch.stack([x, x]), qw)[1], want)
+    # A B = 8 GEMM on the tensor-core kernel: 127 * 32767 * 16384 wraps
+    # where the byte planes' sums are combined.
+    xb = torch.full((8, 16384), 32767, dtype=torch.int16, device=dev)
+    assert pim_gemm.int_variant(qw.q, xb) == "mma"
+    variants = dict(pim_gemm.INT_VARIANT_LAUNCHES)
+    out = pim_gemm.pim_gemm_int(qw.q, xb, qw.scale, 1.0)
+    assert pim_gemm.INT_VARIANT_LAUNCHES == dict(
+        variants, mma=variants["mma"] + 1)
+    assert torch.equal(out, torch.tensor(-538951680.0, device=dev)
+                       * qw.scale[None].expand(8, 8))
+    # W8A8 over 1.5 M columns: every warp's share passes 2^31 inside the
+    # MMA's own s32 accumulators, which must wrap, not saturate.
+    wq = torch.full((16, 3 << 19), 127, dtype=torch.int8, device=dev)
+    xq = torch.full((8, 3 << 19), -128, dtype=torch.int8, device=dev)
+    ws = torch.ones(16, device=dev)
+    assert pim_gemm.int_variant(wq, xq) == "mma"
+    out = held_to_plain("pim_gemm_int", wq, xq, ws, 1.0)
+    assert bool((out == float(-127 * 128 * (3 << 19) % (1 << 32))).all())
 
 
 @pytest.mark.parametrize("dtype", ["FP_W8A8", "FP_W8A16"])
@@ -341,6 +359,65 @@ def test_gemm_fp_tensor_core_edges(dev, x_dtype, w):
         variants, bytes=variants["bytes"] + 1)
 
 
+INT_FORMATS = {"W8A8": (8, torch.int8), "W8A16": (8, torch.int16),
+               "W4A8": (4, torch.int8), "W4A4": (4, torch.int8),
+               "W4A16": (4, torch.int16)}
+
+
+def int_gemm_operands(gen, b, h, w, fmt: str, dev):
+    """Weights (H, W[/2]) int8 with a row of -128 / 127 (int4: -8 / 7)
+    and a row cycling through every int4 nibble / int8 byte; activations
+    (B, W) with the type's extremes, and for int16 the byte planes'
+    extremes: -32768 (hi -128, lo 0), 32767 (127, 255), -1 (-1, 255),
+    0, 255 and 256."""
+    w_bits, x_dtype = INT_FORMATS[fmt]
+    lo, hi = -2 ** (w_bits - 1), 2 ** (w_bits - 1) - 1
+    wq = torch.randint(lo, hi + 1, (h, w), generator=gen)
+    wq[h // 2] = torch.where(torch.arange(w) % 2 == 1, hi, lo)
+    wq[h - 1] = torch.arange(w) % (hi - lo + 1) + lo
+    if w_bits == 4:
+        wq = ref.pack_w4(wq)
+    a_bits = 4 if fmt == "W4A4" else 8 * x_dtype.itemsize
+    alo, ahi = -2 ** (a_bits - 1), 2 ** (a_bits - 1) - 1
+    xb = torch.randint(alo, ahi + 1, (b, w), generator=gen)
+    edge = [alo, ahi, -1, 0] + ([255, 256] if a_bits == 16 else [])
+    xb[b - 1, :len(edge)] = torch.tensor(edge)
+    xb[0, -len(edge):] = torch.tensor(edge)
+    return wq.to(torch.int8).to(dev), xb.to(x_dtype).to(dev)
+
+
+@pytest.mark.parametrize("w", [32, 64, 4096, 4128])
+@pytest.mark.parametrize("fmt", INT_FORMATS)
+def test_gemm_int_tensor_core_edges(dev, fmt, w):
+    """The tensor-core int GEMM bit for bit against its plain version on
+    every edge of its tiles -- batch rows past 8 and 16, weight rows past
+    16, widths that are not multiples of the warps' spans -- with the
+    weight and activation extremes; aligned operands take the MMA
+    variant, a misaligned view the byte-wise one."""
+    w_bits = INT_FORMATS[fmt][0]
+    gen = torch.Generator().manual_seed(w + w_bits)
+    for b in (1, 2, 7, 8, 9, 17):
+        for h in (1, 15, 16, 17, 130):
+            wq, xb = int_gemm_operands(gen, b, h, w, fmt, dev)
+            ws = torch.rand(h, generator=gen).to(dev) + 0.5
+            assert pim_gemm.int_variant(wq, xb) == "mma"
+            variants = dict(pim_gemm.INT_VARIANT_LAUNCHES)
+            out = held_to_plain("pim_gemm_int", wq, xb, ws, 0.37,
+                                w_bits=w_bits)
+            assert pim_gemm.INT_VARIANT_LAUNCHES == dict(
+                variants, mma=variants["mma"] + 1)
+            assert out.shape == (b, h)
+    smoke = _chip_smoke()
+    wq, xb = int_gemm_operands(gen, 9, 17, w, fmt, dev)
+    wq, xb = smoke.misaligned(wq), smoke.misaligned(xb)
+    assert pim_gemm.int_variant(wq, xb) == "bytes"
+    variants = dict(pim_gemm.INT_VARIANT_LAUNCHES)
+    held_to_plain("pim_gemm_int", wq, xb, torch.ones(17, device=dev), 0.37,
+                  w_bits=w_bits)
+    assert pim_gemm.INT_VARIANT_LAUNCHES == dict(
+        variants, bytes=variants["bytes"] + 1)
+
+
 def test_prepare_weights_on_card_gives_the_cpu_bytes(dev):
     rng = np.random.default_rng(3)
     wf = (rng.standard_normal((300, 512)) * 0.02).astype(np.float32)
@@ -367,6 +444,7 @@ def test_granite_8b_linear_fixture_on_card(dev):
     fixture = json.loads((GOLDEN / "torch_pim_linear.json").read_text())
     before = {name: mod.LAUNCHES[name] for name, mod in PIM.items()}
     variants = dict(pim_gemm.FP_VARIANT_LAUNCHES)
+    int_variants = dict(pim_gemm.INT_VARIANT_LAUNCHES)
     for index, site in enumerate(fixture["sites"]):
         wts, acts = smoke.site_inputs(fixture["seed"], index, site["h"],
                                       site["w"])
@@ -381,7 +459,10 @@ def test_granite_8b_linear_fixture_on_card(dev):
                     fixture["fp_rel_tol"]) is None, key
     assert all(mod.LAUNCHES[name] > before[name]
                for name, mod in PIM.items())
-    # Every full-width fp GEMM took the tensor-core variant.
+    # Every full-width GEMM took the tensor-core variant.
     assert pim_gemm.FP_VARIANT_LAUNCHES == dict(
         variants, mma=variants["mma"] + pim_gemm.LAUNCHES["pim_gemm_fp"]
         - before["pim_gemm_fp"])
+    assert pim_gemm.INT_VARIANT_LAUNCHES == dict(
+        int_variants, mma=int_variants["mma"]
+        + pim_gemm.LAUNCHES["pim_gemm_int"] - before["pim_gemm_int"])

@@ -136,6 +136,35 @@ def test_int32_sum_wraps_like_jax():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("b", [2, 9, 17])
+@pytest.mark.parametrize("h", [15, 17, 130])
+@pytest.mark.parametrize("w_bits", [8, 4])
+@pytest.mark.parametrize("a_bits", [8, 16])
+def test_gemm_int_tile_edges_match_jax(b, h, w_bits, a_bits):
+    """The shapes at the edges of the card's int tensor-core tiles (batch
+    past 8 and 16, rows past a 16-row tile, a width whose last 128-byte
+    span is cut short after one pass of 8 warps), with a row of -128 /
+    127 (int4: -8 / 7) weights and the int8 / int16 extremes, through
+    the port's wrapper and the JAX package's kernel, bit for bit."""
+    w = 1040 if w_bits == 8 else 2080            # 1040 weight bytes a row
+    rng = np.random.default_rng(b * h + w_bits + a_bits)
+    wq = _rand_int(rng, (h, w), w_bits).astype(np.int8)
+    wq[h // 2] = np.where(np.arange(w) % 2, 2 ** (w_bits - 1) - 1,
+                          -2 ** (w_bits - 1))
+    xq = _rand_int(rng, (b, w), a_bits)
+    xq[b - 1, :4] = [-2 ** (a_bits - 1), 2 ** (a_bits - 1) - 1, -1, 0]
+    xq = xq.astype(np.int8 if a_bits == 8 else np.int16)
+    wk = np.asarray(jref.pack_w4(wq)) if w_bits == 4 else wq
+    ws = rng.uniform(0.5, 2.0, size=(h,)).astype(np.float32)
+    want = jax_gemm_int(jnp.asarray(wk), jnp.asarray(xq), jnp.asarray(ws),
+                        np.float32(0.03), w_bits=w_bits,
+                        block=(8,) + BLOCK, interpret=True)
+    assert pim_gemm.int_variant(t(wk), t(xq)) == "mma"
+    got = pim_gemm.pim_gemm_int(t(wk), t(xq), t(ws), np.float32(0.03),
+                                w_bits=w_bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("h,w", [(128, 256), (130, 300)])
 @pytest.mark.parametrize("act", ["fp8", "bf16"])
 def test_gemv_fp_matches_jax(h, w, act):
@@ -330,6 +359,37 @@ def test_fp_gemm_variant_is_chosen_by_shape_and_alignment(w, x_dtype, skew,
     out = pim_gemm.pim_gemm_fp(w8, xb)
     assert out.shape == (9, 17)
     assert pim_gemm.FP_VARIANT_LAUNCHES == before
+
+
+@pytest.mark.parametrize("w_bits,w,x_dtype,skew,want", [
+    (8, 16, torch.int8, None, "mma"),
+    (8, 4096, torch.int8, None, "mma"),
+    (8, 4128, torch.int16, None, "mma"),
+    (8, 200, torch.int8, None, "bytes"),
+    (4, 32, torch.int8, None, "mma"),
+    (4, 4128, torch.int16, None, "mma"),
+    (4, 48, torch.int16, None, "bytes"),
+    (8, 4096, torch.int8, "w", "bytes"),
+    (4, 4096, torch.int16, "x", "bytes"),
+])
+def test_int_gemm_variant_is_chosen_by_shape_and_alignment(w_bits, w,
+                                                           x_dtype, skew,
+                                                           want):
+    """The tensor-core int GEMM takes 16-byte aligned operands whose
+    (packed) weight rows are a multiple of 16 bytes -- W % 16 for int8,
+    W % 32 for int4; everything else goes byte by byte.  On CPU tensors
+    the wrapper runs the plain version and counts nothing."""
+    wq = torch.ones((17, w * w_bits // 8), dtype=torch.int8)
+    xb = torch.ones((9, w), dtype=x_dtype)
+    if skew == "w":
+        wq = chip_smoke.misaligned(wq)
+    if skew == "x":
+        xb = chip_smoke.misaligned(xb)
+    assert pim_gemm.int_variant(wq, xb) == want
+    before = dict(pim_gemm.INT_VARIANT_LAUNCHES)
+    out = pim_gemm.pim_gemm_int(wq, xb, torch.ones(17), 0.5, w_bits=w_bits)
+    assert out.shape == (9, 17)
+    assert pim_gemm.INT_VARIANT_LAUNCHES == before
 
 
 # ---------------------------------------------------------------------
