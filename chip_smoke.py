@@ -581,8 +581,7 @@ def main() -> int:
                  "pim_gemm_int": ptxas_kernels(gemm_log,
                                                r"gemm_int_mma_kernel")}
     for name, want, params in (("pim_gemm_fp", 4, "XBYTES, NT"),
-                               ("pim_gemm_int", 8,
-                                "WBITS, XBYTES, NT, MT, HF, WARPS")):
+                               ("pim_gemm_int", 8, "WBITS, XBYTES, NT")):
         for k in mma_ptxas[name]:
             print(f"    ptxas {k['name']} ({params}): {k['registers']} "
                   f"registers, {k['spill_bytes']} spill bytes")

@@ -32,10 +32,10 @@
 // mod 2^32 like the TPU's int32 accumulator, and the 8 warps' partial
 // tiles are summed as uint32_t through shared memory, so every result is
 // bit-exact and independent of the order of the sums.  The flush is the
-// TPU kernel's: float32(int32 sum) times the row scale.  Other tile
-// shapes, timed by tools/int_gemm_variants.py on an H100 at lm_head,
-// B = 8: with 8-bit weights none of nine was more than 3 % faster; with
-// int4 each with one M tile per block was 1-29 % slower than the default.
+// TPU kernel's: float32(int32 sum) times the row scale.  Nine other tile
+// shapes (M tiles per block, loads per row and lane, 4 or 8 warps),
+// timed on an H100 at lm_head, B = 8, gained at most 3 % with 8-bit
+// weights; with int4 each with one M tile per block was 1-29 % slower.
 //
 // fp (gemm_fp_mma_kernel): the multiply moves to the tensor cores, so
 // the work per weight byte falls from 8 scalar FMAs plus decode and L1
@@ -248,26 +248,27 @@ __device__ __forceinline__ uint32_t piece_word(const int4 (&p)[N], int i) {
   return word(p[i / 4], i % 4);
 }
 
-// NT: N tiles (8 batch rows each) per pass over the weights.  MT: M
-// tiles (16 weight rows each) per block; HF: 16-byte loads per weight row
-// and lane in each warp step, which covers 64 HF bytes of the rows; WARPS:
-// warps splitting the width.  The defaults make a warp step cover 128
-// columns: for 8-bit weights two loads per row and lane of one M tile, as
-// in the fp kernel; int4 rows hold those columns in 64 bytes, so a block
-// takes two M tiles and each activation fragment feeds both.  The other
-// values are there for tools/int_gemm_variants.py, which times them.
-template <int WBITS, int XBYTES, int NT, int MT = 8 / WBITS,
-          int HF = WBITS / 4, int WARPS = kMmaWarps>
-__global__ void __launch_bounds__(WARPS * kWarp, 1)
+// M tiles (16 weight rows each) per block.  A warp step covers 128
+// columns: for 8-bit weights two 16-byte loads per row and lane of one M
+// tile, as in the fp kernel; int4 rows hold those columns in 64 bytes, so
+// a block takes two M tiles and each activation fragment feeds both.
+template <int WBITS>
+constexpr int kIntMmaTiles = 8 / WBITS;
+
+// NT: N tiles (8 batch rows each) per pass over the weights.
+template <int WBITS, int XBYTES, int NT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
     gemm_int_mma_kernel(const uint8_t* __restrict__ w,
                         const uint8_t* __restrict__ x,
                         const float* __restrict__ ws, float* __restrict__ out,
                         int B, int H, long long W) {
+  constexpr int MT = kIntMmaTiles<WBITS>;
+  constexpr int HF = WBITS / 4;              // 16 B loads per row and lane
   constexpr int kCols = 8 / WBITS;           // columns per weight byte
   constexpr int kSteps = 2 * kCols;          // MMA steps per 16 weight bytes
   constexpr int kPieces = kCols * XBYTES;    // 16 B activation pieces per 16
   constexpr int kSpan = 64 * HF;             // weight bytes per warp step
-  __shared__ uint32_t part[WARPS][MT * NT * 4][kWarp];
+  __shared__ uint32_t part[kMmaWarps][MT * NT * 4][kWarp];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int g = lane / 4, t = lane % 4;
   const long long row0 = static_cast<long long>(blockIdx.x) * kMmaRows * MT;
@@ -277,7 +278,7 @@ __global__ void __launch_bounds__(WARPS * kWarp, 1)
 
   for (int b0 = 0; b0 < B; b0 += 8 * NT) {
     uint32_t acc[MT][NT][XBYTES][4] = {};    // A16: [hi, lo] byte planes
-    for (long long sp = warp; sp < spans; sp += WARPS) {
+    for (long long sp = warp; sp < spans; sp += kMmaWarps) {
       const long long off0 = sp * kSpan + 16 * t;
       int4 wv[MT][2][HF];                    // [M tile][row g, g + 8][load]
       int4 xv[NT][HF][kPieces];              // [N tile][load][16 B piece]
@@ -362,11 +363,11 @@ __global__ void __launch_bounds__(WARPS * kWarp, 1)
           part[warp][(m * NT + nt) * 4 + j][lane] = v;
         }
     __syncthreads();
-    for (int i = threadIdx.x; i < MT * NT * 4 * kWarp; i += WARPS * kWarp) {
+    for (int i = threadIdx.x; i < MT * NT * 4 * kWarp; i += kMmaThreads) {
       const int reg = i / kWarp, ln = i % kWarp;
       uint32_t sum = part[0][reg][ln];
 #pragma unroll
-      for (int k = 1; k < WARPS; ++k) sum += part[k][reg][ln];
+      for (int k = 1; k < kMmaWarps; ++k) sum += part[k][reg][ln];
       const int m = reg / (4 * NT), nt = reg / 4 % NT, j = reg % 4;
       const long long h = row0 + kMmaRows * m + ln / 4 + 8 * (j / 2);
       const long long b = b0 + 8 * nt + 2 * (ln % 4) + j % 2;
@@ -388,7 +389,7 @@ cudaError_t launch_int(const void* w, const void* x, const float* ws,
     return cudaGetLastError();
   }
   const auto* xp = static_cast<const uint8_t*>(x);
-  const int rows = kMmaRows * 8 / WBITS;       // the kernel's M tiles
+  const int rows = kMmaRows * kIntMmaTiles<WBITS>;
   const int grid = (H + rows - 1) / rows;
   if (B <= 8)
     gemm_int_mma_kernel<WBITS, XBYTES, 1><<<grid, kMmaThreads, 0, s>>>(
