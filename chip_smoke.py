@@ -7,7 +7,8 @@ Phases (any failure exits nonzero before the last line):
 
 1. The card (``nvidia-smi``) and the kernel build (``nvcc`` from the
    sources under ``src/repro_torch/kernels/csrc``), with the registers
-   and spills ptxas reports for the tensor-core fp and int GEMM kernels.
+   and spills ptxas reports for the lane-scan kernel (one per bank
+   count) and the tensor-core fp and int GEMM kernels.
 2. The lane-scan kernel against its plain torch version on the card:
    fuzzed lanes at every instantiated bank count (ragged lengths,
    out-of-range opcodes and banks, wrapping timings), the probe lane,
@@ -20,7 +21,9 @@ Phases (any failure exits nonzero before the last line):
 4. The main path, with the lane LRU cold and the launch count at 0: the
    quickstart flow, the full Fig-4 sweep (7 dtypes, both axes) and the
    granite-8b ``decode_speedup(batch=1)``.  Each part's wall time ends in
-   ``torch.cuda.synchronize()``.
+   ``torch.cuda.synchronize()`` and is split into host planning
+   (``plan_many``), packing and the host-to-card copy, the lane-scan
+   kernel (CUDA events), the read-back, and the rest of the host's work.
 5. The kernel's time at the main path's own launches, beside its bound.
 6. The four PIM-tile GEMV/GEMM kernels against their plain torch
    versions on the card, on the operands ``pim_linear`` hands them:
@@ -576,6 +579,15 @@ def main() -> int:
         print(f"    ptxas {source}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
               f"bytes {spills}")
+    lane_ptxas = ptxas_kernels(build.BUILD_INFO["logs"].get("lane_scan.cu",
+                                                            ""),
+                               r"lane_scan_kernel")
+    for k in lane_ptxas:
+        print(f"    ptxas {k['name']} (NB): {k['registers']} registers, "
+              f"{k['spill_bytes']} spill bytes")
+    check(not build.BUILD_INFO["logs"]
+          or len(lane_ptxas) == len(lane_scan.SUPPORTED_BANKS),
+          f"ptxas reported {len(lane_ptxas)} lane-scan kernels")
     gemm_log = build.BUILD_INFO["logs"].get("pim_gemm.cu", "")
     mma_ptxas = {"pim_gemm_fp": ptxas_kernels(gemm_log, r"gemm_fp_mma_kernel"),
                  "pim_gemm_int": ptxas_kernels(gemm_log,
@@ -719,17 +731,51 @@ def main() -> int:
           f"{len(points['granite_8b_plan'])} sites) reproduced exactly")
 
     # ---- 4. the main path ------------------------------------------------
+    # Each part's wall, split: the wrappers below add their seconds to
+    # the running part's pieces; a synchronize before the kernel closes
+    # the copies, and the kernel's results are read back here.
     launched: list[tuple] = []
     real_scan = lane_scan.lane_scan
+    real_pack = engine.pack_lanes
+    real_plan = PimExecutor.plan_many
+    pieces = ("plan_many", "pack_copy", "kernel", "read_back")
+    split: dict = {}
+    packed_at = [0.0]
+
+    def timed_plan(self, reqs):
+        t = time.perf_counter()
+        out = real_plan(self, reqs)
+        split[part]["plan_many"] += time.perf_counter() - t
+        return out
+
+    def timed_pack(lanes):
+        packed_at[0] = time.perf_counter()
+        return real_pack(lanes)
 
     def recording_scan(*args, **kw):     # keeps the inputs for phase 5
+        torch.cuda.synchronize()
+        split[part]["pack_copy"] += time.perf_counter() - packed_at[0]
         launched.append((part, args, kw))
-        return real_scan(*args, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        iss, tot = real_scan(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        split[part]["kernel"] += start.elapsed_time(end) / 1e3
+        t = time.perf_counter()
+        out = (None if iss is None else iss.cpu(), tot.cpu())
+        split[part]["read_back"] += time.perf_counter() - t
+        return out
 
     lane_scan.lane_scan = recording_scan
+    engine.pack_lanes = timed_pack
+    PimExecutor.plan_many = timed_plan
     engine.lane_cache_reset()
     lane_scan.LAUNCHES = 0
     walls, launches = {}, {}
+    for p in ("quickstart", "fig4_sweep", "granite_8b_decode"):
+        split[p] = dict.fromkeys(pieces, 0.0)
 
     part = "quickstart"
     t0 = time.perf_counter()
@@ -783,14 +829,18 @@ def main() -> int:
     walls[part] = time.perf_counter() - t0
     launches[part] = lane_scan.LAUNCHES - sum(launches.values())
     lane_scan.lane_scan = real_scan
+    engine.pack_lanes = real_pack
+    PimExecutor.plan_many = real_plan
     check(roundtrip(tel) == points["granite_8b_decode_speedup_b1"],
           "granite-8b decode speedup != fixture")
     total_launches = lane_scan.LAUNCHES
     check(total_launches > 0 and all(v > 0 for v in launches.values()),
           f"main path did not launch the kernel: {launches}")
     for p in walls:
-        print(f"[4] {p}: {walls[p]:.2f} s wall, {launches[p]} kernel "
-              f"launches")
+        split[p]["other"] = walls[p] - sum(split[p].values())
+        print(f"[4] {p}: {walls[p]:.3f} s wall, {launches[p]} kernel "
+              f"launches; seconds: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split[p].items()))
     print(f"[4] W8A8 4096x4096 speedup {head:.3f}x; granite-8b decode "
           f"speedup at batch 1: {tel['speedup']:.4f}x "
           f"({len(tel['offloaded'])}/{tel['n_sites']} sites offloaded)")
@@ -884,7 +934,9 @@ def main() -> int:
         "ms_on": "granite-8b decode_speedup fleet, LRU cold",
         "plain_on": f"Fig-4 PIM 512x4096 W8A8 lanes ({steps} steps)",
         "kernel_ms_on_plain_inputs": short_kernel_ms,
-        "fleets": fleets}, *pim_entries]}
+        "fleets": fleets, "ptxas": lane_ptxas,
+        "part_seconds": {p: dict(wall=walls[p], **split[p])
+                         for p in walls}}, *pim_entries]}
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -6,40 +6,50 @@
 //
 // What it computes.  A lane is one channel's command stream
 // [op, a, b, col] (int32) under its own 28-field timing row.  For every
-// command the lane's channel state yields 17 issue-time candidates, one
-// per opcode; the command's opcode picks one (its issue cycle), and every
-// state field is then written once under opcode masks.  The lane's total
-// is the final `drain`.  Rows and columns never enter the timing, and the
-// reference's `open_row` / `mode` fields are written but never read, so
-// they are not carried here.
+// command the lane's channel state yields the issue-time candidate of the
+// command's opcode (its issue cycle), and the opcode's state fields are
+// then written.  The lane's total is the final `drain`.  Rows and columns
+// never enter the timing, and the reference's `open_row` / `mode` fields
+// are written but never read, so they are not carried here.
 //
 // Bit-exactness with the JAX engine:
 //   * int32 adds wrap in JAX; here every add/sub goes through uint32.
 //   * `x[i]` gathers (per-bank tables, the 17-entry candidate and
 //     occupancy tables) wrap a negative index once by adding the table
 //     length, then clamp it into range; equality tests use the raw value.
+//     So an out-of-range bank is read at its clamped index and written
+//     nowhere, and an out-of-range opcode takes the candidate and the two
+//     addends of its clamped index and writes only `cmd_free` and `drain`.
 //   * NEG = -(1 << 30) is the "never happened" sentinel; the ACT_MB quad
 //     is the banks with (bank % 4) == a for every bank count.
 //   * Commands at positions >= lengths[f] are NOPs; their issue entries
 //     are the lane's final NOP issue cycle.
 //
-// Design and bound.  One thread per lane; the channel state the timing
-// reads (four per-bank vectors of NB entries, the four-entry tFAW ring
-// and thirteen scalars) lives in registers for the whole stream: every
-// per-bank access is an unrolled select over compile-time indices, never
-// a dynamically indexed local array.  The kernel is templated on NB and
-// instantiated for every multiple of 4 from 4 to 32.
-//   bytes:  16 B read per command (+4 B written when issue arrays are
-//           asked for), over 3.35 TB/s;
-//   chain:  each command depends on the previous one through the state
-//           (t0 -> candidate -> opcode select -> cmd_free / drain), at
-//           least 8 dependent integer operations of about 4 cycles each,
-//           so the longest lane costs N * 32 cycles at the SM clock.
-// The chain bounds every real fleet: a 1.6 M-command baseline lane is
-// tens of milliseconds of dependent latency but 26 MB of reads (8 us).
-// One thread per lane does nothing to shorten the chain; it only keeps
-// the state out of memory so that each step costs its arithmetic.
-// Spreading a lane over a warp, or sorting lanes by length, is later work.
+// Design.  One warp per lane and one lane per block, so the few long
+// lanes of a fleet run on different SMs.
+//   * Banks across the warp: thread k holds bank k's ready_act,
+//     act_cycle, rd_cycle and wr_end; threads k >= NB hold INT32_MIN, which
+//     loses every maximum (NEG would not: wrapped values fall below it).
+//     The scalars and the four-entry tFAW ring (kept oldest first) are
+//     computed uniformly in every thread.  A reduction over banks is one
+//     `__reduce_max_sync`; max(act_cycle), which MAC reads, is kept
+//     current after each ACT / ACT_MB instead.
+//   * Bank values read a step ahead: at the top of step i every thread
+//     shuffles the four values of step i + 1's bank out of the state
+//     before step i, and step i then applies its own write to them, so no
+//     shuffle latency sits in the chain from one issue cycle to the next.
+//   * The opcode is a warp-uniform branch: each case computes only its
+//     own candidate and writes only its own fields.
+//   * Commands are fetched a chunk of 32 ahead: thread j loads command
+//     `base + 32 + j` as one int4 (a coalesced 512-byte load) while chunk
+//     `base` runs, and each step's op and bank come from a shuffle issued
+//     one step early.  Issue cycles are kept one per thread and stored
+//     once per chunk, coalesced.
+// Bound.  Each command depends on the previous one through the state
+// (t -> cmd_free / last_cas / bus_free -> t0 and the candidate -> t), a
+// chain of dependent integer operations: N * 32 cycles at the SM clock
+// for the longest lane is the bound chip_smoke.py states.  The bytes are
+// small beside it (16 B per command, +4 B of issue cycles).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,7 +57,10 @@
 namespace {
 
 constexpr int32_t NEG = -(1 << 30);
+constexpr int32_t NONE = INT32_MIN;      // no bank: loses every maximum
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int NUM_OPS = 17;
+constexpr int CHUNK = 32;
 
 enum Field {
   cRCD, cRP, cRAS, cRC, cRRD, cFAW, cCCD, cRTP, cWR, cWTR, cRTW, cRL, cWL,
@@ -88,187 +101,287 @@ __device__ __forceinline__ int32_t pick(const int32_t (&v)[K], int i) {
   return out;
 }
 
-template <int K>
-__device__ __forceinline__ int32_t vmax(const int32_t (&v)[K]) {
-  int32_t out = v[0];
-#pragma unroll
-  for (int k = 1; k < K; ++k) out = imax(out, v[k]);
-  return out;
+__device__ __forceinline__ int32_t bank_max(int32_t v) {
+  return __reduce_max_sync(FULL, v);
 }
 
 template <int NB>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(32)
 lane_scan_kernel(const int32_t* __restrict__ cycs,
                  const int4* __restrict__ streams,
                  const int32_t* __restrict__ lengths,
                  int32_t* __restrict__ issue,
-                 int32_t* __restrict__ totals, int F, long long N) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= F) return;
+                 int32_t* __restrict__ totals, long long N) {
+  const int f = blockIdx.x;
+  const int k = threadIdx.x;             // this thread's bank and slot
+  const bool bank = k < NB;
 
   int32_t c[NUM_FIELDS];
 #pragma unroll
-  for (int j = 0; j < NUM_FIELDS; ++j) c[j] = cycs[f * NUM_FIELDS + j];
+  for (int j = 0; j < NUM_FIELDS; ++j) c[j] = __ldg(cycs + f * NUM_FIELDS + j);
   const int32_t rdburst = add(c[cRL], c[cBURST]);
   const int32_t wrburst = add(c[cWL], c[cBURST]);
-  const int32_t cmd_add[NUM_OPS] = {
-      0, c[cACT], c[cPRE], c[cPRE], c[cCAS], c[cCAS], c[cACT], c[cACT],
-      c[cACT], c[cACT], c[cPRE], c[cCAS], c[cCAS], c[cMACCMD], c[cCAS],
-      c[cCAS], 0};
-  const int32_t drain_add[NUM_OPS] = {
-      0, c[cRCD], c[cRP], c[cRP], rdburst, wrburst, c[cRFC], c[cMODE],
-      c[cMODE], c[cRCD], c[cRP], wrburst, wrburst, c[cMACPIPE], rdburst,
-      c[cMOV], 0};
 
-  int32_t ready_act[NB], act_cycle[NB], rd_cycle[NB], wr_end[NB];
-#pragma unroll
-  for (int k = 0; k < NB; ++k) {
-    ready_act[k] = 0;
-    act_cycle[k] = NEG;
-    rd_cycle[k] = NEG;
-    wr_end[k] = NEG;
-  }
-  int32_t faw[4] = {NEG, NEG, NEG, NEG};
-  int faw_i = 0;
+  // This thread's bank.
+  int32_t ready_act = bank ? 0 : NONE;
+  int32_t act_cycle = bank ? NEG : NONE;
+  int32_t rd_cycle = act_cycle, wr_end = act_cycle;
+  // The lane's scalars, the same in every thread.
+  int32_t faw0 = NEG, faw1 = NEG, faw2 = NEG, faw3 = NEG;
   int32_t last_act = NEG, last_actmb = NEG, last_cas = NEG, last_mac = NEG;
   int32_t bus_free = 0, bus_dir = 0, cmd_free = 0, srf_ready = 0;
   int32_t mac_pipe_end = 0, mode_ready = 0, drain = 0, fence_until = 0;
+  int32_t max_act = NEG;
 
   long long len = lengths[f];
   len = len < 0 ? 0 : (len > N ? N : len);
   const int4* cmds = streams + static_cast<long long>(f) * N;
   int32_t* out = issue ? issue + static_cast<long long>(f) * N : nullptr;
+  auto fetch = [&](long long i) {
+    return i < len ? __ldg(cmds + i) : make_int4(NOP, 0, 0, 0);
+  };
 
-  for (long long i = 0; i < len; ++i) {
-    const int4 cmd = cmds[i];
-    const int32_t op = cmd.x;
-    const int32_t a = cmd.y;
-    const int opi = table_index(op, NUM_OPS);
-    const int ai = table_index(a, NB);
+  // The step's command and its bank's values (all banks start equal).
+  int4 ahead = fetch(k);
+  int32_t cur_op = ahead.x, cur_a = ahead.y;
+  ahead = fetch(CHUNK + k);
+  int32_t op = __shfl_sync(FULL, cur_op, 0);
+  int32_t a = __shfl_sync(FULL, cur_a, 0);
+  int32_t at_ready = 0, at_act = NEG, at_rd = NEG, at_wr = NEG;
+  int32_t my_t = 0;
 
-    const bool is_nop = op == NOP, is_act = op == ACT, is_pre = op == PRE;
-    const bool is_prea = op == PREA || op == PRE_MB;
-    const bool is_rd = op == RD, is_wr = op == WR, is_refab = op == REFAB;
-    const bool is_mode_mb = op == MODE_MB, is_mode_sb = op == MODE_SB;
-    const bool is_mode = is_mode_mb || is_mode_sb;
-    const bool is_actmb = op == ACT_MB, is_wrsrf = op == WR_SRF;
-    const bool is_wrreg = is_wrsrf || op == WR_IRF;
-    const bool is_mac = op == MAC, is_rdacc = op == RD_ACC;
-    const bool is_mov = op == MOV_ACC, is_fence = op == FENCE;
-    const bool is_actfam = is_act || is_actmb;
-    const bool rd_bus = is_rd || is_rdacc;
-    const bool wr_bus = is_wr || is_wrreg;
-    const bool sets_cas = rd_bus || wr_bus || is_mov;
+  for (long long base = 0; base < len; base += CHUNK) {
+    const int32_t nxt_op = ahead.x, nxt_a = ahead.y;
+    ahead = fetch(base + 2 * CHUNK + k);
+    const int steps = len - base < CHUNK ? static_cast<int>(len - base)
+                                         : CHUNK;
+    for (int j = 0; j < steps; ++j) {
+      // The next command, and its bank's values before this step.
+      const bool edge = j == CHUNK - 1;
+      const int32_t op_n =
+          __shfl_sync(FULL, edge ? nxt_op : cur_op, (j + 1) & (CHUNK - 1));
+      const int32_t a_n =
+          __shfl_sync(FULL, edge ? nxt_a : cur_a, (j + 1) & (CHUNK - 1));
+      const int ai_n = table_index(a_n, NB);
+      int32_t n_ready = __shfl_sync(FULL, ready_act, ai_n);
+      int32_t n_act = __shfl_sync(FULL, act_cycle, ai_n);
+      int32_t n_rd = __shfl_sync(FULL, rd_cycle, ai_n);
+      int32_t n_wr = __shfl_sync(FULL, wr_end, ai_n);
 
-    // ---- shared subexpressions ----------------------------------------
-    const int32_t t0 = imax(imax(cmd_free, fence_until), mode_ready);
-    const int32_t act_a = pick(act_cycle, ai);
-    const int32_t max_act = vmax(act_cycle);
-    int32_t quad_ready = NEG, quad_act = NEG;
-#pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      if ((k % 4) == a) {
-        quad_ready = imax(quad_ready, ready_act[k]);
-        quad_act = imax(quad_act, act_cycle[k]);
+      const bool hit = bank && k == a;
+      const bool hit_n = ai_n == a;
+      const int32_t t0 = imax(imax(cmd_free, fence_until), mode_ready);
+      const int32_t turn_r = bus_dir == 1 ? c[cWTR] : 0;
+      const int32_t turn_w = bus_dir == 0 ? c[cRTW] : 0;
+      const auto cas_rd = [&] {
+        return imax(add(last_cas, c[cCCD]),
+                    sub(add(bus_free, turn_r), c[cRL]));
+      };
+      const auto wr_bus_t = [&] { return sub(add(bus_free, turn_w), c[cWL]); };
+      const auto quad_max = [&](int32_t v) {
+        return imax(NEG, bank_max(bank && (k & 3) == a ? v : NONE));
+      };
+      // The issue-time candidate of opcode o (in range) on this state.
+      const auto cand = [&](int o) -> int32_t {
+        switch (o) {
+          case NOP: return t0;
+          case ACT:
+            return imax(imax(t0, at_ready),
+                        imax(imax(add(at_act, c[cRC]),
+                                  add(last_act, c[cRRD])),
+                             add(faw0, c[cFAW])));
+          case PRE:
+            return imax(imax(t0, add(at_act, c[cRAS])),
+                        imax(add(at_rd, c[cRTP]), add(at_wr, c[cWR])));
+          case PREA:
+          case PRE_MB:
+            return imax(imax(t0, add(max_act, c[cRAS])),
+                        imax(imax(add(bank_max(rd_cycle), c[cRTP]),
+                                  add(bank_max(wr_end), c[cWR])),
+                             add(last_mac, c[cRTP])));
+          case RD:
+            return imax(imax(t0, add(at_act, c[cRCD])),
+                        imax(cas_rd(), add(at_wr, c[cWTR])));
+          case WR:
+            return imax(imax(t0, add(at_act, c[cRCD])),
+                        imax(add(last_cas, c[cCCD]), wr_bus_t()));
+          case REFAB: return imax(t0, bank_max(ready_act));
+          case MODE_MB:
+          case MODE_SB: return imax(t0, drain);
+          case ACT_MB:
+            return imax(imax(t0, add(last_actmb, c[cRRDMB])),
+                        imax(add(last_act, c[cRRD]),
+                             imax(quad_max(ready_act),
+                                  add(quad_max(act_cycle), c[cRC]))));
+          case WR_SRF:
+          case WR_IRF:
+            return imax(imax(t0, add(last_cas, c[cSRFI])),
+                        imax(wr_bus_t(), add(last_mac, c[cMACWR])));
+          case MAC:
+            return imax(imax(t0, add(last_mac, c[cMACI])),
+                        imax(srf_ready, add(max_act, c[cRCD])));
+          case RD_ACC: return imax(imax(t0, mac_pipe_end), cas_rd());
+          case MOV_ACC:
+            return imax(imax(t0, mac_pipe_end), add(last_cas, c[cCCD]));
+          default: return add(drain, c[cFENCE]);
+        }
+      };
+      // Every opcode but NOP: the command bus and the drain horizon.
+      const auto retire = [&](int32_t t, int32_t cmd_add, int32_t drain_add) {
+        cmd_free = add(t, cmd_add);
+        drain = imax(drain, add(t, drain_add));
+      };
+      const auto push_faw = [&](int32_t t) {
+        faw0 = faw1;
+        faw1 = faw2;
+        faw2 = faw3;
+        faw3 = t;
+        last_act = t;
+      };
+
+      int32_t t;
+      switch (op) {
+        case NOP:
+          t = t0;
+          break;
+        case ACT:
+          t = cand(ACT);
+          if (hit) act_cycle = t;
+          if (hit_n) n_act = t;
+          max_act = bank_max(act_cycle);
+          push_faw(t);
+          retire(t, c[cACT], c[cRCD]);
+          break;
+        case PRE:
+          t = cand(PRE);
+          if (hit) ready_act = add(t, c[cRP]);
+          if (hit_n) n_ready = add(t, c[cRP]);
+          retire(t, c[cPRE], c[cRP]);
+          break;
+        case PREA:
+        case PRE_MB:
+          t = cand(PREA);
+          if (bank) ready_act = add(t, c[cRP]);
+          n_ready = add(t, c[cRP]);
+          retire(t, c[cPRE], c[cRP]);
+          break;
+        case RD:
+          t = cand(RD);
+          if (hit) rd_cycle = t;
+          if (hit_n) n_rd = t;
+          last_cas = t;
+          bus_free = add(t, rdburst);
+          bus_dir = 0;
+          retire(t, c[cCAS], rdburst);
+          break;
+        case WR:
+          t = cand(WR);
+          if (hit) wr_end = add(t, wrburst);
+          if (hit_n) n_wr = add(t, wrburst);
+          last_cas = t;
+          bus_free = add(t, wrburst);
+          bus_dir = 1;
+          retire(t, c[cCAS], wrburst);
+          break;
+        case REFAB:
+          t = cand(REFAB);
+          if (bank) ready_act = add(t, c[cRFC]);
+          n_ready = add(t, c[cRFC]);
+          retire(t, c[cACT], c[cRFC]);
+          break;
+        case MODE_MB:
+        case MODE_SB:
+          t = cand(MODE_MB);
+          mode_ready = add(t, c[cMODE]);
+          retire(t, c[cACT], c[cMODE]);
+          break;
+        case ACT_MB:
+          t = cand(ACT_MB);
+          if (bank && (k & 3) == a) act_cycle = t;
+          if ((ai_n & 3) == a) n_act = t;
+          max_act = bank_max(act_cycle);
+          push_faw(t);
+          last_actmb = t;
+          retire(t, c[cACT], c[cRCD]);
+          break;
+        case WR_SRF:
+        case WR_IRF:
+          t = cand(WR_SRF);
+          last_cas = t;
+          bus_free = add(t, wrburst);
+          bus_dir = 1;
+          if (op == WR_SRF) srf_ready = imax(srf_ready, add(t, wrburst));
+          retire(t, c[cCAS], wrburst);
+          break;
+        case MAC:
+          t = cand(MAC);
+          if (bank) rd_cycle = t;
+          n_rd = t;
+          last_mac = t;
+          mac_pipe_end = add(t, c[cMACPIPE]);
+          retire(t, c[cMACCMD], c[cMACPIPE]);
+          break;
+        case RD_ACC:
+          t = cand(RD_ACC);
+          last_cas = t;
+          bus_free = add(t, rdburst);
+          bus_dir = 0;
+          retire(t, c[cCAS], rdburst);
+          break;
+        case MOV_ACC:
+          t = cand(MOV_ACC);
+          if (bank) wr_end = imax(wr_end, add(t, c[cMOV]));
+          n_wr = imax(n_wr, add(t, c[cMOV]));
+          last_cas = t;
+          retire(t, c[cCAS], c[cMOV]);
+          break;
+        case FENCE:
+          t = cand(FENCE);
+          fence_until = t;
+          retire(t, 0, 0);
+          break;
+        default: {  // out of range: the clamped opcode's candidate and adds
+          const int opi = table_index(op, NUM_OPS);
+          const int32_t cmd_add[NUM_OPS] = {
+              0, c[cACT], c[cPRE], c[cPRE], c[cCAS], c[cCAS], c[cACT],
+              c[cACT], c[cACT], c[cACT], c[cPRE], c[cCAS], c[cCAS],
+              c[cMACCMD], c[cCAS], c[cCAS], 0};
+          const int32_t drain_add[NUM_OPS] = {
+              0, c[cRCD], c[cRP], c[cRP], rdburst, wrburst, c[cRFC],
+              c[cMODE], c[cMODE], c[cRCD], c[cRP], wrburst, wrburst,
+              c[cMACPIPE], rdburst, c[cMOV], 0};
+          t = cand(opi);
+          retire(t, pick(cmd_add, opi), pick(drain_add, opi));
+          break;
+        }
       }
+      my_t = k == j ? t : my_t;
+      op = op_n;
+      a = a_n;
+      at_ready = n_ready;
+      at_act = n_act;
+      at_rd = n_rd;
+      at_wr = n_wr;
     }
-    const int32_t turn_r = bus_dir == 1 ? c[cWTR] : 0;
-    const int32_t turn_w = bus_dir == 0 ? c[cRTW] : 0;
-    const int32_t prea_t =
-        imax(imax(t0, add(max_act, c[cRAS])),
-             imax(imax(add(vmax(rd_cycle), c[cRTP]),
-                       add(vmax(wr_end), c[cWR])),
-                  add(last_mac, c[cRTP])));
-    const int32_t mode_t = imax(t0, drain);
-    const int32_t wrreg_t =
-        imax(imax(t0, add(last_cas, c[cSRFI])),
-             imax(sub(add(bus_free, turn_w), c[cWL]),
-                  add(last_mac, c[cMACWR])));
-    const int32_t cas_rd = imax(add(last_cas, c[cCCD]),
-                                sub(add(bus_free, turn_r), c[cRL]));
-
-    // ---- issue-time candidates, gathered by opcode --------------------
-    const int32_t cand[NUM_OPS] = {
-        t0,                                                       // NOP
-        imax(imax(t0, pick(ready_act, ai)),                       // ACT
-             imax(imax(add(act_a, c[cRC]), add(last_act, c[cRRD])),
-                  add(pick(faw, faw_i), c[cFAW]))),
-        imax(imax(t0, add(act_a, c[cRAS])),                       // PRE
-             imax(add(pick(rd_cycle, ai), c[cRTP]),
-                  add(pick(wr_end, ai), c[cWR]))),
-        prea_t,                                                   // PREA
-        imax(imax(t0, add(act_a, c[cRCD])),                       // RD
-             imax(cas_rd, add(pick(wr_end, ai), c[cWTR]))),
-        imax(imax(t0, add(act_a, c[cRCD])),                       // WR
-             imax(add(last_cas, c[cCCD]),
-                  sub(add(bus_free, turn_w), c[cWL]))),
-        imax(t0, vmax(ready_act)),                                // REFAB
-        mode_t,                                                   // MODE_MB
-        mode_t,                                                   // MODE_SB
-        imax(imax(t0, add(last_actmb, c[cRRDMB])),                // ACT_MB
-             imax(add(last_act, c[cRRD]),
-                  imax(quad_ready, add(quad_act, c[cRC])))),
-        prea_t,                                                   // PRE_MB
-        wrreg_t,                                                  // WR_SRF
-        wrreg_t,                                                  // WR_IRF
-        imax(imax(t0, add(last_mac, c[cMACI])),                   // MAC
-             imax(srf_ready, add(max_act, c[cRCD]))),
-        imax(imax(t0, mac_pipe_end), cas_rd),                     // RD_ACC
-        imax(imax(t0, mac_pipe_end), add(last_cas, c[cCCD])),     // MOV_ACC
-        add(drain, c[cFENCE]),                                    // FENCE
-    };
-    const int32_t t = pick(cand, opi);
-    const int32_t end_w = add(t, wrburst);
-
-    // ---- masked single-write updates ----------------------------------
-#pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      const bool hit = k == a;
-      const bool in_quad = (k % 4) == a;
-      if ((is_pre && hit) || is_prea) ready_act[k] = add(t, c[cRP]);
-      if (is_refab) ready_act[k] = add(t, c[cRFC]);
-      if ((is_act && hit) || (is_actmb && in_quad)) act_cycle[k] = t;
-      if ((is_rd && hit) || is_mac) rd_cycle[k] = t;
-      if (is_wr && hit) wr_end[k] = end_w;
-      if (is_mov) wr_end[k] = imax(wr_end[k], add(t, c[cMOV]));
-    }
-    if (is_actfam) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (k == faw_i) faw[k] = t;
-      faw_i = (faw_i + 1) % 4;
-    }
-    if (is_actfam) last_act = t;
-    if (is_actmb) last_actmb = t;
-    if (sets_cas) last_cas = t;
-    bus_free = rd_bus ? add(t, rdburst) : (wr_bus ? end_w : bus_free);
-    bus_dir = rd_bus ? 0 : (wr_bus ? 1 : bus_dir);
-    if (!is_nop) cmd_free = add(t, pick(cmd_add, opi));
-    if (is_mac) last_mac = t;
-    if (is_wrsrf) srf_ready = imax(srf_ready, end_w);
-    if (is_mac) mac_pipe_end = add(t, c[cMACPIPE]);
-    if (is_mode) mode_ready = add(t, c[cMODE]);
-    if (!is_nop) drain = imax(drain, add(t, pick(drain_add, opi)));
-    if (is_fence) fence_until = t;
-    if (out) out[i] = t;
+    if (out && base + k < len) out[base + k] = my_t;
+    cur_op = nxt_op;
+    cur_a = nxt_a;
   }
 
   if (out) {
     const int32_t t_end = imax(imax(cmd_free, fence_until), mode_ready);
-    for (long long i = len; i < N; ++i) out[i] = t_end;
+    for (long long i = len + k; i < N; i += CHUNK) out[i] = t_end;
   }
-  totals[f] = drain;
+  if (k == 0) totals[f] = drain;
 }
 
 template <int NB>
 cudaError_t launch(const int32_t* cycs, const int32_t* streams,
                    const int32_t* lengths, int32_t* issue, int32_t* totals,
                    int F, long long N, cudaStream_t stream) {
-  constexpr int kThreads = 64;
-  const int blocks = (F + kThreads - 1) / kThreads;
-  lane_scan_kernel<NB><<<blocks, kThreads, 0, stream>>>(
+  lane_scan_kernel<NB><<<F, CHUNK, 0, stream>>>(
       cycs, reinterpret_cast<const int4*>(streams), lengths, issue, totals,
-      F, N);
+      N);
   return cudaGetLastError();
 }
 

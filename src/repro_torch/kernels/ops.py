@@ -93,14 +93,17 @@ def _fp_acts(xb: torch.Tensor, dtype: PimDType) -> torch.Tensor:
             else xb.to(torch.bfloat16)).contiguous()
 
 
-def pim_linear(x, qw: QuantWeights, *, block=None) -> torch.Tensor:
+def pim_linear(x, qw: QuantWeights, *, block=None,
+               interpret: bool | None = None) -> torch.Tensor:
     """``y = x @ W^T`` through the PIM-tile kernels; ``x`` is ``(W,)`` or
     ``(B, W)`` float, ``y`` float32 ``(H,)`` or ``(B, H)``.
 
-    ``block`` is accepted for signature parity with the JAX package; the
-    card's kernels do not tile by it, so it changes no result.
+    ``block`` and ``interpret`` are accepted for signature parity with
+    the JAX package and change no result: the card's kernels do not tile
+    by ``block``, and a CUDA kernel has no interpret mode (CPU tensors
+    take the plain versions whatever ``interpret`` says).
     """
-    del block
+    del block, interpret
     x = torch.as_tensor(x, device=qw.q.device).to(torch.float32)
     squeeze = x.dim() == 1
     xb = x[None] if squeeze else x

@@ -110,6 +110,63 @@ def test_kernel_matches_plain_on_pim_streams(dev):
                         16, dev)
 
 
+EDGE_LENGTHS = (0, 1, 31, 32, 33, 63, 64, 65)   # around the 32-command chunks
+EDGE_N = 70
+EDGE_OPS = (-1, -5, -16, -17, -40, 17, 18, 33, 60)   # out of range
+# Fields set near -2**31 in the wrapping rows.  A command that adds one
+# to a small cycle lands far below NEG; two such terms added wrap.  The
+# opening of each wrapping lane (reads, PREA, FENCE, MODE) drives every
+# term of t0 and every bank's ready_act below NEG, so the REFAB and PREA
+# after it issue below NEG, where a reduction whose idle threads held NEG
+# would differ.
+WRAP_FIELDS = ("cRP", "cRFC", "cMODE", "cACT", "cPRE", "cCAS", "cFENCE",
+               "cMACCMD")
+WRAP_OPENING = ((1, 0), (4, 0), (4, 1), (5, 2), (3, 0), (16, 0), (7, 0),
+                (6, 0), (3, 0))
+
+
+def edge_banks(nb: int) -> tuple:
+    """Raw banks that index no bank (read at their clamped index, written
+    nowhere) or, 4..7, no ACT_MB quad."""
+    return (-1, -nb - 1, 4, 5, 6, 7, nb, 100)
+
+
+def edge_lanes(nb: int, seed: int):
+    """Lanes of every length in ``EDGE_LENGTHS`` (padded to ``EDGE_N``
+    with junk past each length), twice: under small random timings, and
+    under timings whose ``WRAP_FIELDS`` are near -2**31.  The streams mix
+    valid opcodes with ``EDGE_OPS`` and in-range banks with
+    :func:`edge_banks`; each wrapping lane opens with
+    ``WRAP_OPENING``."""
+    rng = np.random.default_rng([nb, seed])
+    f = 2 * len(EDGE_LENGTHS)
+    cycs = rng.integers(0, 9, size=(f, len(lane_scan.CYC_FIELDS)))
+    for name in WRAP_FIELDS:
+        j = lane_scan.CYC_FIELDS.index(name)
+        cycs[len(EDGE_LENGTHS):, j] = -(1 << 31) + rng.integers(
+            1, 64, len(EDGE_LENGTHS))
+    streams = rng.integers(0, 128, size=(f, EDGE_N, 4))
+    streams[..., 0] = rng.choice(
+        [*range(17), 6, 3, 10, 13, 9] + list(EDGE_OPS), size=(f, EDGE_N))
+    streams[..., 1] = np.where(rng.random((f, EDGE_N)) < 0.3,
+                               rng.choice(edge_banks(nb), (f, EDGE_N)),
+                               rng.integers(0, nb, (f, EDGE_N)))
+    streams[len(EDGE_LENGTHS):, :len(WRAP_OPENING), :2] = WRAP_OPENING
+    lengths = np.array(EDGE_LENGTHS * 2)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+                 for x in (cycs, streams, lengths))
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("nb", [4, 32])
+def test_kernel_matches_plain_at_chunk_and_warp_edges(dev, nb, seed):
+    """The warp kernel at its edges: lengths around each 32-command
+    chunk, 4 banks (28 threads without a bank) and 32 (the full warp),
+    banks and opcodes out of range, and timings that wrap far below NEG,
+    where a reduction whose idle threads held NEG would differ."""
+    kernel_equals_plain(*edge_lanes(nb, seed), nb, dev)
+
+
 def test_launch_rejects_bad_inputs_on_card(dev):
     cycs, streams, lengths = (x.to(dev) for x in fuzzed(16, 2, 8, seed=0))
     with pytest.raises(ValueError, match="num_banks"):
@@ -350,6 +407,26 @@ def test_gemm_fp_tensor_core_edges(dev, x_dtype, w):
             torch.cuda.synchronize()
             smoke.pim_error("pim_gemm_fp", out, want, (w8, x))
             assert out.isnan().any()               # the NaN reached it
+    if x_dtype == torch.bfloat16:
+        # Activations from 2**-124 down into bf16's subnormals (the last
+        # batch row all subnormal), so that many products, and the last
+        # row's sums, are f32 subnormals inside the MMA's sums.
+        for b, h in ((1, 17), (9, 130)):
+            wf = rng.standard_normal((h, w)).astype(np.float32) * 3.0
+            xf = rng.standard_normal((b, w)) * 2.0 ** -(124 + np.arange(w)
+                                                        % 8)
+            xf[b - 1] *= 2.0 ** -8
+            w8 = ref.to_e4m3fn(torch.from_numpy(wf)).to(dev)
+            x = torch.from_numpy(xf.astype(np.float32)).to(torch.bfloat16)
+            prods = x.float()[:, None, :] * w8.cpu().float()[None]
+            assert bool(((prods != 0) & (prods.abs() < 2.0 ** -126)).any())
+            x = x.to(dev)
+            assert pim_gemm.fp_variant(w8, x) == "mma"
+            out = pim_gemm.pim_gemm_fp(w8, x)
+            want = pim_gemm.pim_gemm_fp_plain(w8, x)
+            torch.cuda.synchronize()
+            assert bool((want[b - 1] != 0).any())  # the plain sums keep them
+            smoke.pim_error("pim_gemm_fp", out, want, (w8, x))
     w8, x = fp_gemm_operands(rng, 9, 17, w, x_dtype, dev)
     w8, x = smoke.misaligned(w8), smoke.misaligned(x)
     variants = dict(pim_gemm.FP_VARIANT_LAUNCHES)

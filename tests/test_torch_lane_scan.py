@@ -29,6 +29,7 @@ from repro_torch.kernels import lane_scan
 
 from test_conformance import fleet_from_seed, make_spec
 from test_engine import build_valid_stream, random_op_tuples
+from test_torch_gpu import edge_lanes
 
 
 def port_cyc(ref_cyc):
@@ -183,6 +184,33 @@ def test_int32_wraparound_matches_jax():
                                  [16, 0, 0, 0]] * 3
     got = assert_matches_jax([(big, np.asarray(ops, np.int32))])
     assert min(got[0][0]) < 0          # the run really wrapped
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("nb", [4, 32])
+def test_plain_matches_jax_on_the_kernel_edge_lanes(nb, seed):
+    """The lanes ``test_torch_gpu.py`` holds the warp kernel to plain on
+    (chunk-edge lengths, 4 and 32 banks, out-of-range banks and opcodes,
+    timings near -2**31), through the JAX engine: each lane NOP-padded to
+    the full width, so the tails are compared too.  Some REFAB must issue
+    below NEG, or the lanes could not tell a reduction's neutral value."""
+    cycs, streams, lengths = edge_lanes(nb, seed)
+    issue, totals = lane_scan.lane_scan_plain(cycs, streams, lengths, nb)
+    base = dataclasses.replace(REF_DEFAULT.derive_cycles(), num_banks=nb)
+    lanes = []
+    for row, s, n in zip(cycs.tolist(), streams.numpy(), lengths.tolist()):
+        s = s.copy()
+        s[n:] = 0
+        lanes.append((dataclasses.replace(
+            base, **dict(zip(lane_scan.CYC_FIELDS, row))), s))
+    ref_engine.lane_cache_reset()
+    for f, (wi, wt) in enumerate(ref_engine.resolve_lanes(lanes)):
+        np.testing.assert_array_equal(issue[f].numpy(), wi,
+                                      err_msg=f"issue, lane {f}")
+        assert int(totals[f]) == wt, f"total, lane {f}"
+    live = torch.arange(streams.shape[1]) < lengths[:, None]
+    refab = live & (streams[..., 0] == 6)
+    assert bool((issue[refab] < lane_scan.NEG).any())
 
 
 def test_pack_cycles_matches_reference_packing():

@@ -279,6 +279,29 @@ def test_pim_linear_matches_jax(dtype, ndim):
         jops.PimDType[dtype.name])
 
 
+@pytest.mark.parametrize("interpret", [True, False])
+@pytest.mark.parametrize("dtype", ["W8A8", "W4A16", "FP_W8A16"])
+def test_pim_linear_takes_the_reference_signature(dtype, interpret):
+    """A call written for the reference (``block=``, ``interpret=``)
+    runs on the port and gives the output of the call without them, and
+    the JAX package's output in interpret mode."""
+    rng = np.random.default_rng(len(dtype))
+    wf = (rng.standard_normal((40, 160)) * 0.3).astype(np.float32)
+    x = (rng.standard_normal((2, 160)) * 0.8).astype(np.float32)
+    jq = jops.prepare_weights(wf, dtype)
+    pq = ops.prepare_weights(wf, dtype, device="cpu")
+    block = jops.pim_block_shape(jq.dtype)
+    for xi in (x, x[0]):
+        got = ops.pim_linear(xi, pq, block=block, interpret=interpret)
+        assert torch.equal(got, ops.pim_linear(xi, pq))
+        want = np.asarray(jops.pim_linear(xi, jq, block=block,
+                                          interpret=True))
+        if pq.dtype.is_fp:
+            np.testing.assert_allclose(got.numpy(), want, **FP_TOL)
+        else:
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     wq = torch.zeros((4, 32), dtype=torch.int8)
     ws = torch.ones(4)
