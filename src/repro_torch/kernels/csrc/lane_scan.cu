@@ -39,12 +39,18 @@
 //     before step i, and step i then applies its own write to them, so no
 //     shuffle latency sits in the chain from one issue cycle to the next.
 //   * The opcode is a warp-uniform branch: each case computes only its
-//     own candidate and writes only its own fields.
+//     own candidate and writes only its own fields.  RD (host reads) and
+//     MAC (PIM lanes), most of every real stream, are tested first, on a
+//     class decoded with the command, which keeps the compiler from
+//     folding them into the switch's indirect jump.
 //   * Commands are fetched a chunk of 32 ahead: thread j loads command
 //     `base + 32 + j` as one int4 (a coalesced 512-byte load) while chunk
-//     `base` runs, and each step's op and bank come from a shuffle issued
-//     one step early.  Issue cycles are kept one per thread and stored
-//     once per chunk, coalesced.
+//     `base` runs, decodes it (bank index, class) and writes it to a
+//     64-command ring in shared memory; each step reads the command two
+//     steps on from the ring with one broadcast load (three shuffles and
+//     their selects, were it taken from the chunk's registers).  The step
+//     loop is unrolled by two.  Issue cycles are kept one per thread and
+//     stored once per chunk, coalesced.
 // Bound.  Each command depends on the previous one through the state
 // (t -> cmd_free / last_cas / bus_free -> t0 and the candidate -> t), a
 // chain of dependent integer operations: N * 32 cycles at the SM clock
@@ -61,6 +67,7 @@ constexpr int32_t NONE = INT32_MIN;      // no bank: loses every maximum
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NUM_OPS = 17;
 constexpr int CHUNK = 32;
+constexpr int HOT_RD = 1, HOT_MAC = 2;   // opcode classes taken first
 
 enum Field {
   cRCD, cRP, cRAS, cRC, cRRD, cFAW, cCCD, cRTP, cWR, cWTR, cRTW, cRL, cWL,
@@ -140,29 +147,42 @@ lane_scan_kernel(const int32_t* __restrict__ cycs,
   auto fetch = [&](long long i) {
     return i < len ? __ldg(cmds + i) : make_int4(NOP, 0, 0, 0);
   };
+  // A command as a step reads it: op, a, and `meta`, its bank index and
+  // the class of the hot opcodes (bits 8 and up).
+  const auto decode = [](int4 cmd) {
+    const int hot = cmd.x == RD ? HOT_RD : cmd.x == MAC ? HOT_MAC : 0;
+    return make_int4(cmd.x, cmd.y, table_index(cmd.y, NB) | hot << 8, 0);
+  };
 
-  // The step's command and its bank's values (all banks start equal).
+  // Slot i % 64 of the ring holds command i, decoded.  At the top of the
+  // chunk at `base` thread j writes command `base + 32 + j` (loaded a
+  // chunk earlier) and starts loading command `base + 64 + j`.
+  __shared__ int4 ring[2 * CHUNK];
   int4 ahead = fetch(k);
-  int32_t cur_op = ahead.x, cur_a = ahead.y;
+  ring[k] = decode(ahead);
   ahead = fetch(CHUNK + k);
-  int32_t op = __shfl_sync(FULL, cur_op, 0);
-  int32_t a = __shfl_sync(FULL, cur_a, 0);
+  __syncwarp();
+  // This step's command, the next one's, and this step's bank's values
+  // (all banks start equal).
+  int32_t op = ring[0].x, a = ring[0].y;
+  int hot = ring[0].z >> 8;
+  int32_t op_n = ring[1].x, a_n = ring[1].y, meta_n = ring[1].z;
   int32_t at_ready = 0, at_act = NEG, at_rd = NEG, at_wr = NEG;
   int32_t my_t = 0;
 
   for (long long base = 0; base < len; base += CHUNK) {
-    const int32_t nxt_op = ahead.x, nxt_a = ahead.y;
+    __syncwarp();
+    ring[(base + CHUNK + k) & (2 * CHUNK - 1)] = decode(ahead);
     ahead = fetch(base + 2 * CHUNK + k);
+    __syncwarp();
     const int steps = len - base < CHUNK ? static_cast<int>(len - base)
                                          : CHUNK;
+#pragma unroll 2
     for (int j = 0; j < steps; ++j) {
-      // The next command, and its bank's values before this step.
-      const bool edge = j == CHUNK - 1;
-      const int32_t op_n =
-          __shfl_sync(FULL, edge ? nxt_op : cur_op, (j + 1) & (CHUNK - 1));
-      const int32_t a_n =
-          __shfl_sync(FULL, edge ? nxt_a : cur_a, (j + 1) & (CHUNK - 1));
-      const int ai_n = table_index(a_n, NB);
+      // The command two steps on; the next one's bank values before this
+      // step, at the index read one step ago.
+      const int4 cmd_nn = ring[(base + j + 2) & (2 * CHUNK - 1)];
+      const int ai_n = meta_n & 0xff;
       int32_t n_ready = __shfl_sync(FULL, ready_act, ai_n);
       int32_t n_act = __shfl_sync(FULL, act_cycle, ai_n);
       int32_t n_rd = __shfl_sync(FULL, rd_cycle, ai_n);
@@ -239,8 +259,34 @@ lane_scan_kernel(const int32_t* __restrict__ cycs,
         last_act = t;
       };
 
+      // The hot opcodes' steps, dispatched on their class (RD: host
+      // reads; MAC: PIM lanes) ahead of the switch.
+      const auto step_rd = [&] {
+        const int32_t t = cand(RD);
+        if (hit) rd_cycle = t;
+        if (hit_n) n_rd = t;
+        last_cas = t;
+        bus_free = add(t, rdburst);
+        bus_dir = 0;
+        retire(t, c[cCAS], rdburst);
+        return t;
+      };
+      const auto step_mac = [&] {
+        const int32_t t = cand(MAC);
+        if (bank) rd_cycle = t;
+        n_rd = t;
+        last_mac = t;
+        mac_pipe_end = add(t, c[cMACPIPE]);
+        retire(t, c[cMACCMD], c[cMACPIPE]);
+        return t;
+      };
+
       int32_t t;
-      switch (op) {
+      if (hot == HOT_RD) {
+        t = step_rd();
+      } else if (hot == HOT_MAC) {
+        t = step_mac();
+      } else switch (op) {
         case NOP:
           t = t0;
           break;
@@ -266,13 +312,7 @@ lane_scan_kernel(const int32_t* __restrict__ cycs,
           retire(t, c[cPRE], c[cRP]);
           break;
         case RD:
-          t = cand(RD);
-          if (hit) rd_cycle = t;
-          if (hit_n) n_rd = t;
-          last_cas = t;
-          bus_free = add(t, rdburst);
-          bus_dir = 0;
-          retire(t, c[cCAS], rdburst);
+          t = step_rd();
           break;
         case WR:
           t = cand(WR);
@@ -314,12 +354,7 @@ lane_scan_kernel(const int32_t* __restrict__ cycs,
           retire(t, c[cCAS], wrburst);
           break;
         case MAC:
-          t = cand(MAC);
-          if (bank) rd_cycle = t;
-          n_rd = t;
-          last_mac = t;
-          mac_pipe_end = add(t, c[cMACPIPE]);
-          retire(t, c[cMACCMD], c[cMACPIPE]);
+          t = step_mac();
           break;
         case RD_ACC:
           t = cand(RD_ACC);
@@ -358,14 +393,16 @@ lane_scan_kernel(const int32_t* __restrict__ cycs,
       my_t = k == j ? t : my_t;
       op = op_n;
       a = a_n;
+      hot = meta_n >> 8;
+      op_n = cmd_nn.x;
+      a_n = cmd_nn.y;
+      meta_n = cmd_nn.z;
       at_ready = n_ready;
       at_act = n_act;
       at_rd = n_rd;
       at_wr = n_wr;
     }
     if (out && base + k < len) out[base + k] = my_t;
-    cur_op = nxt_op;
-    cur_a = nxt_a;
   }
 
   if (out) {

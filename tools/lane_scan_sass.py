@@ -10,13 +10,22 @@ adds line tables and leaves the code alone), disassembles it with
 instantiated for ``--nb`` banks: the innermost loop (a backward branch
 whose span holds no other) with the most instructions.
 
-Each instruction is attributed to the outermost source line it was
-inlined at.  Where the loop dispatches on the opcode (a ``switch (op)``
-in the source), the instructions of one step with opcode X are those of
-the loop outside the ``switch`` plus those of ``case X``; a kernel with
-no ``switch`` issues the whole loop every step.  Prints one JSON object;
-the disassembly goes to ``DIR/<source stem>.sass``.  Needs the CUDA
-toolkit (``nvcc``, ``nvdisasm``).
+Each instruction carries the source lines it was inlined through, and
+each basic block of the loop the code it holds: ``case X`` of the
+``switch (op)``, the switch's own dispatch, or, for an opcode whose step
+is a lambda ``step_x`` called ahead of the switch, that lambda and its
+call.  The instructions of one step with opcode X are those of the
+shortest path through the loop's control-flow graph (branch targets,
+``BRX`` jump tables included) that runs X's code and no other opcode's,
+and the switch's dispatch only if X goes through it (null for an opcode
+with no code of its own, such as NOP).  A loop unrolled by
+``#pragma unroll U`` (the last such line before the switch) holds U
+steps, so the count is divided by U; for an opcode that goes through
+the switch the path then need run its code in only one of the U copies,
+so its count is a lower bound (exact for the hot opcodes).  A kernel with no ``switch`` issues the whole loop every
+step.  Prints one JSON object; the disassembly goes to
+``DIR/<source stem>.sass``.  Needs the CUDA toolkit (``nvcc``,
+``nvdisasm``).
 """
 import argparse
 import collections
@@ -55,23 +64,24 @@ def disassemble(source: pathlib.Path, out: pathlib.Path) -> str:
 
 
 def functions(text: str) -> dict[str, list[dict]]:
-    """Function name -> instructions [{addr, text, line, label}] (the
-    label an instruction carries, if a branch targets it)."""
+    """Function name -> instructions [{addr, text, lines, label}]: the
+    source lines it was inlined through, and the label it carries if a
+    branch targets it."""
     funcs: dict[str, list[dict]] = {}
     cur = None
-    line = None
+    lines: list[int] = []
     label = None
     for raw in text.splitlines():
         m = SECTION.search(raw)
         if m:
             cur = funcs.setdefault(m.group(1), [])
-            line = label = None
+            lines, label = [], None
             continue
         if cur is None:
             continue
         m = LINE.findall(raw)
         if m and "//##" in raw:
-            line = int(m[-1])           # outermost "inlined at" location
+            lines = [int(n) for n in m]
             continue
         m = LABEL.match(raw.strip())
         if m:
@@ -80,7 +90,7 @@ def functions(text: str) -> dict[str, list[dict]]:
         m = INSN.search(raw)
         if m:
             cur.append(dict(addr=int(m.group(1), 16), text=m.group(2).strip(),
-                            line=line, label=label))
+                            lines=lines, label=label))
             label = None
     return funcs
 
@@ -102,23 +112,84 @@ def step_loop(insns: list[dict]) -> tuple[int, int]:
     return max(inner, key=lambda s: s[1] - s[0])
 
 
-def switch_cases(src: list[str]) -> tuple[tuple[int, int] | None, dict]:
-    """The 1-based line span of ``switch (op)`` and each case's span."""
-    start = next((i for i, s in enumerate(src)
-                  if re.match(r"\s*switch \(op\)", s)), None)
-    if start is None:
-        return None, {}
+def basic_blocks(insns: list[dict]) -> list[list[dict]]:
+    """Split at branch targets and after branches."""
+    blocks: list[list[dict]] = []
+    for ins in insns:
+        if not blocks or ins["label"] or re.search(
+                r"\b(BRA|BRX|EXIT|RET)\b", blocks[-1][-1]["text"]):
+            blocks.append([])
+        blocks[-1].append(ins)
+    return blocks
+
+
+def shortest_path(blocks: list[list[dict]], allowed: list[bool],
+                  own: list[bool]) -> int | None:
+    """Fewest instructions from the loop's first block to its last (the
+    back branch) through allowed blocks only, passing an ``own`` one."""
+    at = {b[0]["label"]: k for k, b in enumerate(blocks) if b[0]["label"]}
+    best = {(0, own[0]): len(blocks[0])}
+    for k, b in enumerate(blocks):          # forward edges only: a DAG
+        text = b[-1]["text"]
+        m = re.search(r"BRANCH_TARGETS ([^\"]*)", text)
+        if m:
+            nxt = [at[t] for t in m.group(1).split(",") if t in at]
+        else:
+            m = TARGET.search(text) if BRANCH.match(text) else None
+            nxt = [at[m.group(1)]] if m and m.group(1) in at else []
+            if not (m and not text.startswith("@")):
+                nxt.append(k + 1)
+        for seen in (False, True):
+            cost = best.get((k, seen))
+            if cost is None:
+                continue
+            for n in nxt:
+                if k < n < len(blocks) and allowed[n]:
+                    key = (n, seen or own[n])
+                    if cost + len(blocks[n]) < best.get(key, 1 << 30):
+                        best[key] = cost + len(blocks[n])
+    return best.get((len(blocks) - 1, True))
+
+
+def closing(src: list[str], start: int) -> int:
+    """Index of the line that closes the block opened at ``start``: the
+    next line at its indentation that starts with ``}``."""
     indent = len(src[start]) - len(src[start].lstrip())
-    end = next(i for i in range(start + 1, len(src))
-               if src[i].strip() == "}"
-               and len(src[i]) - len(src[i].lstrip()) == indent)
+    return next(i for i in range(start + 1, len(src))
+                if src[i].lstrip().startswith("}")
+                and len(src[i]) - len(src[i].lstrip()) == indent)
+
+
+def dispatch(src: list[str]) -> tuple:
+    """1-based line spans: of ``switch (op)``, of each of its cases, and
+    of each ``step_x`` lambda with its calls outside the switch (by
+    opcode name); and the step loop's unroll factor."""
+    start = next((i for i, s in enumerate(src)
+                  if re.search(r"\bswitch \(op\)", s)), None)
+    if start is None:
+        return None, {}, {}, 1
+    end = closing(src, start)
     heads = [(i, m.group(1) or "default") for i in range(start, end)
              for m in [re.match(r"\s*(?:case (\w+)|default):", src[i])] if m]
-    cases = {}
+    cases: dict = {}
     for k, (i, name) in enumerate(heads):
-        stop = heads[k + 1][0] if k + 1 < len(heads) else end
-        cases.setdefault(name, []).append((i + 1, stop))
-    return (start + 1, end + 1), cases
+        j = k + 1               # labels stacked on one body share it
+        while j < len(heads) and heads[j][0] == heads[j - 1][0] + 1:
+            j += 1
+        stop = heads[j][0] if j < len(heads) else end
+        cases.setdefault(name, []).append((i + 1, stop + 1))
+    steps: dict = {}
+    for i, s in enumerate(src):
+        m = re.search(r"auto step_(\w+) = \[", s)
+        if m:
+            steps.setdefault(m.group(1).upper(), []).append(
+                (i + 1, closing(src, i) + 2))
+        m = re.search(r"\bstep_(\w+)\(\)", s)
+        if m and not start <= i <= end:
+            steps.setdefault(m.group(1).upper(), []).append((i + 1, i + 2))
+    unroll = [int(m.group(1)) for s in src[:start]
+              for m in [re.match(r"\s*#pragma unroll (\d+)", s)] if m]
+    return (start + 1, end + 2), cases, steps, (unroll or [1])[-1]
 
 
 def opcode_mix(insns: list[dict]) -> dict:
@@ -146,23 +217,37 @@ def main() -> int:
     insns = [i for i in funcs[names[0]] if i["text"] != "NOP"]
     first, last = step_loop(insns)
     loop = insns[first:last + 1]
-    span, cases = switch_cases(args.source.read_text().splitlines())
+    span, cases, steps, unroll = dispatch(
+        args.source.read_text().splitlines())
     report = dict(source=str(args.source), function=names[0],
                   kernel_instructions=len(insns),
                   loop_instructions=len(loop), loop_mix=opcode_mix(loop),
-                  unattributed=sum(i["line"] is None for i in loop))
+                  unattributed=sum(not i["lines"] for i in loop))
     if span is None:
         report["per_step"] = {"every opcode": len(loop)}
     else:
-        inside = lambda ins, rngs: ins["line"] is not None and any(  # noqa
-            a <= ins["line"] < b for a, b in rngs)
-        common = [i for i in loop if not inside(i, [span])]
-        report["common"] = len(common)
-        report["per_step"] = {
-            name: len(common) + sum(inside(i, rngs) for i in loop)
-            for name, rngs in cases.items()}
-        report["dispatch"] = [i["text"] for i in common
-                              if re.search(r"\bBRX\b|\bBRA\b", i["text"])]
+        def owners(line: int) -> set:
+            if not span[0] <= line < span[1]:
+                return {("hot", name) for name, spans in steps.items()
+                        if any(a <= line < b for a, b in spans)}
+            if line == span[0]:
+                return {("switch", "")}
+            return {("case", name) for name, spans in cases.items()
+                    if any(a <= line < b for a, b in spans)}
+
+        blocks = basic_blocks(loop)
+        held = [set().union(*(owners(n) for i in b for n in i["lines"]))
+                for b in blocks]
+
+        def issued(name: str) -> float:
+            own = ("hot", name) if name in steps else ("case", name)
+            via = set() if name in steps else {("switch", "")}
+            cost = shortest_path(blocks, [own in h or h <= via for h in held],
+                                 [own in h for h in held])
+            return None if cost is None else cost / unroll
+
+        report["unroll"] = unroll
+        report["per_step"] = {name: issued(name) for name in cases}
     print(json.dumps(report))
     return 0
 
