@@ -48,7 +48,7 @@ Phases (any failure exits nonzero before the last line):
 Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
 flushed before every launch, one pair of CUDA events per launch, the
 median, min and max over many launches (100 for the PIM-tile kernels,
-5 for each lane-scan launch, which runs for 0.6-1.9 s), a kernel and its
+5 for each lane-scan launch, which runs for up to 0.1 s), a kernel and its
 library call timed in turns.
 
 The second-to-last line is the ``kernels`` JSON record (all five
@@ -75,7 +75,7 @@ CHAIN_CYCLES_PER_STEP = 32         # 8 dependent int ops x ~4 cycles
 L2_FLUSH_BYTES = 128 << 20         # written before each timed launch
 HOST_COVER_CYCLES = 400_000        # device sleep before each: ~0.2 ms
 KERNEL_REPS = 100                  # timed launches per PIM-tile kernel
-LANE_REPS = 5                      # per lane-scan launch (each 0.6-1.8 s)
+LANE_REPS = 5                      # per lane-scan launch (each <= 0.1 s)
 
 
 def fail(msg: str) -> None:

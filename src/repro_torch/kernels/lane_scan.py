@@ -10,8 +10,8 @@ Two implementations of one function live here:
 * :func:`lane_scan_plain` — the step written with torch ops, batched over
   the fleet axis, with a Python loop over commands.  It is the oracle the
   kernel is held to, and the path a CPU tensor takes.
-* the CUDA kernel in ``csrc/lane_scan.cu`` (one thread per lane, state in
-  registers), built by ``kernels/build.py`` on first use.
+* the CUDA kernel in ``csrc/lane_scan.cu`` (one warp per lane, the banks
+  across its threads), built by ``kernels/build.py`` on first use.
 
 :func:`lane_scan` dispatches on the tensors' device: CPU tensors take the
 plain version; CUDA tensors launch the kernel or raise.  There is no
