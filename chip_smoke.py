@@ -8,7 +8,8 @@ Phases (any failure exits nonzero before the last line):
 1. The card (``nvidia-smi``) and the kernel build (``nvcc`` from the
    sources under ``src/repro_torch/kernels/csrc``), with the registers
    and spills ptxas reports for the lane-scan kernel (one per bank
-   count) and the tensor-core fp and int GEMM kernels.
+   count), the tensor-core fp and int GEMM kernels and the int GEMV's
+   vector kernel (one per format and rows per warp).
 2. The lane-scan kernel against its plain torch version on the card:
    fuzzed lanes at every instantiated bank count (ragged lengths,
    out-of-range opcodes and banks, wrapping timings), the probe lane,
@@ -30,9 +31,12 @@ Phases (any failure exits nonzero before the last line):
    fuzzed and ragged shapes, all 7 dtypes, batch 1 (GEMV) and 1, 3, 8,
    9 (GEMM); int4 nibbles and int8/int16 extremes, the int32-wraparound
    cases (one through each GEMM variant's own accumulators), fp8 NaN
-   and saturation, misaligned views (the byte-wise path), and the
+   and saturation, misaligned views (the byte-wise path), the
    tensor-core GEMMs' tile edges (batch 2, 7, 17; rows past a 16-row
-   tile; widths ending inside a warp's span).
+   tile; widths ending inside a warp's span), and the int GEMV's vector
+   kernel at the edges of its warps' row groups (H = 1, R +- 1, 15, 17,
+   1024, 1025 and around the least H that takes the large-H R; widths up
+   to 14336; each shape's variant asserted) and a W4A16 sum that wraps.
    Int outputs must be bit-equal; fp outputs within
    ``2 W 2**-24 sum|w x|`` per output, the bound of an f32 sum.
 7. ``granite_8b_linear``, the quantized-linear path at full width, with
@@ -40,10 +44,14 @@ Phases (any failure exits nonzero before the last line):
    ``lm_head`` (8 sites), each weight prepared on the card for all 7
    dtypes and run at batch 1 and 8, must reproduce
    ``tests/golden/torch_pim_linear.json`` (computed by the JAX package).
-   Every GEMM there must take the tensor-core variant.  Then each
-   kernel's time at ``lm_head``, beside its bound, its plain version
-   and, where one exists, one PyTorch call of the same function; and
-   the int GEMM at W8A8, batch 16 (two N tiles), beside ``_int_mm``.
+   Every GEMM there must take the tensor-core variant and every int
+   GEMV a vector one.  Then the int GEMV at all 40 site x format
+   launches, each beside its bound, and the sum over them of time -
+   bound; the tensor-core int GEMM on ``lm_head``'s GEMV operands as a
+   batch of one, beside the GEMV; each kernel's time at ``lm_head``,
+   beside its bound, its plain version and, where one exists, one
+   PyTorch call of the same function; and the int GEMM at W8A8, batch 16
+   (two N tiles), beside ``_int_mm``.
 
 Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
 flushed before every launch, one pair of CUDA events per launch, the
@@ -339,22 +347,43 @@ def pim_kernels_vs_plain(dev, mods: dict, plain: dict) -> dict:
     # edges (-32768, 32767, -1, 0, 255, 256).
     for b, h, w in ((2, 15, 32), (7, 17, 4128), (9, 130, 4096),
                     (17, 33, 64), (17, 16, 4128)):
-        for w_bits, a_bits in ((8, 8), (8, 16), (4, 8), (4, 4), (4, 16)):
-            lo, hi = -2 ** (w_bits - 1), 2 ** (w_bits - 1) - 1
-            wq = rng.integers(lo, hi + 1, size=(h, w))
-            wq[h // 2] = np.where(np.arange(w) % 2, hi, lo)
-            wq[h - 1] = np.arange(w) % (hi - lo + 1) + lo
-            wq = dev_t(wq.astype(np.int8))
-            wq = ref.pack_w4(wq) if w_bits == 4 else wq
-            alo, ahi = -2 ** (a_bits - 1), 2 ** (a_bits - 1) - 1
-            xb = rng.integers(alo, ahi + 1, size=(b, w))
-            edge = [alo, ahi, -1, 0] + ([255, 256] if a_bits == 16 else [])
-            xb[b - 1, :len(edge)] = edge
-            xb = dev_t(xb.astype(np.int16 if a_bits == 16 else np.int8))
+        for w_bits, a_bits in INT_FORMATS.values():
+            wq, xb = int_edge_operands(rng, b, h, w, w_bits, a_bits, dev)
             check(pim_gemm.int_variant(wq, xb) == "mma",
                   f"int GEMM edge {b}x{h}x{w} not on the MMA variant")
             pim_gemm.pim_gemm_int(wq, xb, dev_t(rng.uniform(
                 0.5, 2.0, h).astype(np.float32)), 0.37, w_bits=w_bits)
+
+    # The int GEMV's vector kernel at its edges, every format, the same
+    # extremes: rows 1, R - 1, R + 1, 15, 17, 1024, 1025 and widths up to
+    # mlp.wo's 14336 (R rows per warp for small H), then around the
+    # smallest H that takes the large-H R; each shape's variant is
+    # asserted.
+    for w_bits, a_bits in INT_FORMATS.values():
+        small, large = pim_gemv.GEMV_INT_ROWS[(w_bits, 2 if a_bits == 16
+                                               else 1)]
+        least = pim_gemv.GEMV_INT_ROWS_MIN_BLOCKS * 8 * large
+        shapes = [(h, w) for h in sorted({1, max(1, small - 1), small + 1,
+                                          15, 17, 1024, 1025})
+                  for w in (32, 64, 4096, 4128, 14336)]
+        shapes += [(h, w) for h in (least - 1, least, least + large + 1)
+                   for w in (32, 4128)]
+        for h, w in shapes:
+            wq, xb = int_edge_operands(rng, 1, h, w, w_bits, a_bits, dev)
+            want = f"rows{large if h >= least else small}"
+            check(pim_gemv.gemv_int_variant(wq, xb[0], w_bits) == want,
+                  f"int GEMV {h}x{w} W{w_bits}A{a_bits} not on {want}")
+            pim_gemv.pim_gemv_int(wq, xb[0], dev_t(rng.uniform(
+                0.5, 2.0, h).astype(np.float32)), 0.37, w_bits=w_bits)
+    # A W4A16 GEMV whose sum wraps: 7 * 32767 * 16384 passes 2^31.
+    wq = ref.pack_w4(torch.full((8, 16384), 7, dtype=torch.int8,
+                                device=dev))
+    xq = torch.full((16384,), 32767, dtype=torch.int16, device=dev)
+    ws = torch.linspace(0.5, 1.5, 8, device=dev)
+    y = pim_gemv.pim_gemv_int(wq, xq, ws, 1.0, w_bits=4)
+    wrapped = 7 * 32767 * 16384 - (1 << 32)
+    check(torch.equal(y, torch.tensor(float(wrapped), device=dev) * ws),
+          f"int GEMV W4A16 wraparound: {y[:2].tolist()}")
 
     # The int32 wraparound: 127 * 32767 * 16384 through pim_linear (GEMV
     # and a B = 8 GEMM on the MMA variant, where the byte planes' sums
@@ -397,6 +426,35 @@ def pim_kernels_vs_plain(dev, mods: dict, plain: dict) -> dict:
     return worst
 
 
+# The int formats: (weight bits, activation bits).
+INT_FORMATS = {"W8A8": (8, 8), "W8A16": (8, 16), "W4A8": (4, 8),
+               "W4A4": (4, 4), "W4A16": (4, 16)}
+
+
+def int_edge_operands(rng, b: int, h: int, w: int, w_bits: int,
+                      a_bits: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Int weights (H, W[/2]) with a row of -128 / 127 (int4: -8 / 7)
+    and a row cycling through every int4 nibble / int8 byte; activations
+    (B, W) with the type's extremes, and for int16 the byte planes':
+    -32768 (hi -128, lo 0), 32767 (127, 255), -1 (-1, 255), 0, 255 and
+    256, at the start of the last row and the end of the first."""
+    from repro_torch.kernels import ref
+
+    lo, hi = -2 ** (w_bits - 1), 2 ** (w_bits - 1) - 1
+    wq = rng.integers(lo, hi + 1, size=(h, w))
+    wq[h // 2] = np.where(np.arange(w) % 2, hi, lo)
+    wq[h - 1] = np.arange(w) % (hi - lo + 1) + lo
+    wq = torch.from_numpy(wq.astype(np.int8)).to(dev)
+    wq = ref.pack_w4(wq) if w_bits == 4 else wq
+    alo, ahi = -2 ** (a_bits - 1), 2 ** (a_bits - 1) - 1
+    xb = rng.integers(alo, ahi + 1, size=(b, w))
+    edge = [alo, ahi, -1, 0] + ([255, 256] if a_bits == 16 else [])
+    xb[b - 1, :len(edge)] = edge
+    xb[0, -len(edge):] = edge
+    xb = xb.astype(np.int16 if a_bits == 16 else np.int8)
+    return wq, torch.from_numpy(xb).to(dev)
+
+
 def misaligned(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``t`` whose data starts one element past a
     16-byte boundary (the kernels then read it byte by byte)."""
@@ -420,19 +478,23 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
           == [(s["name"], s["h"], s["w"]) for s in sites],
           "the fixture's sites are not granite-8b's decode GEMV sites")
     heavy: dict = {}
+    gemv_calls: dict = {}
     now: dict = {}
 
     def keep_lm_head(name, out, args, kw):
         if now["site"] == "lm_head":
             heavy[(name, now["dtype"])] = (out, args, kw)
+        if name == "pim_gemv_int":
+            gemv_calls[(now["site"], now["dtype"])] = (out, args, kw)
 
-    from repro_torch.kernels import pim_gemm
+    from repro_torch.kernels import pim_gemm, pim_gemv
 
     real = patch_pim_kernels(mods, keep_lm_head)
     for name, mod in mods.items():
         mod.LAUNCHES[name] = 0
     for counts in (pim_gemm.FP_VARIANT_LAUNCHES,
-                   pim_gemm.INT_VARIANT_LAUNCHES):
+                   pim_gemm.INT_VARIANT_LAUNCHES,
+                   pim_gemv.GEMV_INT_VARIANT_LAUNCHES):
         for variant in counts:
             counts[variant] = 0
     t0 = time.perf_counter()
@@ -455,17 +517,28 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
     restore_pim_kernels(mods, real)
     launches = {name: mod.LAUNCHES[name] for name, mod in mods.items()}
     variants = {"pim_gemm_fp": dict(pim_gemm.FP_VARIANT_LAUNCHES),
-                "pim_gemm_int": dict(pim_gemm.INT_VARIANT_LAUNCHES)}
+                "pim_gemm_int": dict(pim_gemm.INT_VARIANT_LAUNCHES),
+                "pim_gemv_int": dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES)}
     check(all(n > 0 for n in launches.values()),
           f"granite_8b_linear did not launch every kernel: {launches}")
-    for name, counts in variants.items():
-        check(counts == {"mma": launches[name], "bytes": 0},
+    for name in ("pim_gemm_fp", "pim_gemm_int"):
+        check(variants[name] == {"mma": launches[name], "bytes": 0},
               f"full-width {name} calls did not all take the tensor-core "
-              f"kernel: {counts}")
+              f"kernel: {variants[name]}")
+    gv = variants["pim_gemv_int"]
+    check(gv["bytes"] == 0 and sum(gv.values())
+          == launches["pim_gemv_int"] == len(gemv_calls),
+          f"full-width pim_gemv_int calls did not all take a vector "
+          f"variant: {gv}")
     print(f"[7] granite_8b_linear: {len(fixture['results'])} outputs "
           f"reproduce torch_pim_linear.json; {wall:.2f} s wall, launches "
           f"{launches}; GEMM variants {variants}")
 
+    sites = gemv_int_sites(
+        real["pim_gemv_int"], gemv_calls,
+        lambda args, kw: pim_gemv.gemv_int_variant(args[0], args[1],
+                                                   kw["w_bits"]))
+    mma_b1 = mma_at_batch_1(real["pim_gemv_int"], gemv_calls)
     timed = {}
     for (name, dtype), (out, args, kw) in sorted(heavy.items()):
         timed[(name, dtype)] = time_kernel(name, dtype, real[name],
@@ -480,7 +553,26 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
         "pim_gemm_int", "W8A8", real["pim_gemm_int"], plain["pim_gemm_int"],
         out, args, kw)
     return dict(wall=wall, launches=launches, variants=variants,
-                timed=timed)
+                timed=timed, gemv_int_sites=sites, mma_at_batch_1=mma_b1)
+
+
+def kernel_bound(out: torch.Tensor, args: tuple) -> tuple[float, str, int]:
+    """The least time (ms) the card could take for one PIM-tile call on
+    ``args`` giving ``out``: the larger of the bytes it must move (each
+    tensor argument read once, the output written once) over the memory
+    rate and its 2 B H W operations at the tensor-core peak; what bounds
+    it; and the bytes."""
+    w_op, x_op = args[0], args[1]
+    width = x_op.shape[-1]
+    batch = 1 if x_op.dim() == 1 else x_op.shape[0]
+    nbytes = out.numel() * 4 + sum(a.numel() * a.element_size()
+                                   for a in args
+                                   if isinstance(a, torch.Tensor))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = PEAK_OPS_16BIT if x_op.element_size() == 2 else PEAK_OPS_8BIT
+    ops_ms = 2 * batch * w_op.shape[0] * width / peak * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
 
 
 def time_kernel(name: str, dtype: str, kernel, plain, out: torch.Tensor,
@@ -489,7 +581,6 @@ def time_kernel(name: str, dtype: str, kernel, plain, out: torch.Tensor,
     ``KERNEL_REPS``, in turns with its library call), its plain version,
     its bound and its largest difference from plain."""
     w_op, x_op = args[0], args[1]
-    width = x_op.shape[-1]
     batch = 1 if x_op.dim() == 1 else x_op.shape[0]
     err = pim_error(name, out, plain(*args, **kw), args)
     fns = {"kernel": lambda: kernel(*args, **kw)}
@@ -498,22 +589,67 @@ def time_kernel(name: str, dtype: str, kernel, plain, out: torch.Tensor,
         fns["library"] = lib
     t = timed_ms(fns, KERNEL_REPS)          # kernel and library in turns
     plain_t = timed_ms({"plain": lambda: plain(*args, **kw)}, 5)["plain"]
-    nbytes = out.numel() * 4 + sum(a.numel() * a.element_size()
-                                   for a in args
-                                   if isinstance(a, torch.Tensor))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    peak = PEAK_OPS_16BIT if x_op.element_size() == 2 else PEAK_OPS_8BIT
-    ops_ms = 2 * batch * w_op.shape[0] * width / peak * 1e3
+    bound_ms, bound_by, nbytes = kernel_bound(out, args)
     row = dict(
         ms=t["kernel"]["ms"], plain_ms=plain_t["ms"],
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_ms=bound_ms, bound_by=bound_by,
         library_ms=t["library"]["ms"] if lib else None,
         max_abs_err=err, batch=batch, bytes=nbytes,
         spread={k: [v["min_ms"], v["max_ms"]] for k, v in t.items()},
         launches_timed=KERNEL_REPS)
     print(f"[7] {name} lm_head {dtype} B={batch}: {json.dumps(row)}")
     return row
+
+
+def gemv_int_sites(kernel, calls: dict, variant_of=None) -> dict:
+    """The int GEMV at every site and int format of ``granite_8b_linear``
+    (``calls``: (site, dtype) -> the out, args and kw of its call), each
+    timed on its own operands (median of ``KERNEL_REPS``, L2 flushed)
+    beside its bound; then the sums over those launches, each launched
+    once there, of time, bound and time - bound.  ``variant_of(args,
+    kw)`` names the kernel variant a call takes, where there are
+    variants."""
+    rows = {}
+    for (site, dtype), (out, args, kw) in calls.items():
+        t = timed_ms({"kernel": lambda: kernel(*args, **kw)},
+                     KERNEL_REPS)["kernel"]
+        bound_ms, bound_by, _ = kernel_bound(out, args)
+        row = dict(h=args[0].shape[0], w=args[1].shape[0], ms=t["ms"],
+                   spread=[t["min_ms"], t["max_ms"]], bound_ms=bound_ms,
+                   bound_by=bound_by, gap_ms=t["ms"] - bound_ms,
+                   variant=variant_of(args, kw) if variant_of else None)
+        rows[f"{site}/{dtype}"] = row
+        print(f"[7] pim_gemv_int {site} {dtype}: {json.dumps(row)}")
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "bound_ms", "gap_ms")}
+    print(f"[7] pim_gemv_int over {len(rows)} site x format launches: "
+          f"time {total['ms']!r} ms, bound {total['bound_ms']!r} ms, "
+          f"sum(time - bound) {total['gap_ms']!r} ms")
+    return dict(sites=rows, launches=len(rows), **total)
+
+
+def mma_at_batch_1(kernel, calls: dict) -> dict:
+    """The tensor-core int GEMM (``pim_gemm_int``) on the int GEMV's
+    ``lm_head`` operands as a batch of one, timed beside the GEMV (in
+    turns): a yardstick for the GEMV, which the port never replaces by
+    it."""
+    from repro_torch.kernels import pim_gemm
+
+    out = {}
+    for (site, dtype), (_, args, kw) in calls.items():
+        if site != "lm_head":
+            continue
+        gemm_args = (args[0], args[1][None], *args[2:])
+        check(pim_gemm.int_variant(args[0], gemm_args[1]) == "mma",
+              f"lm_head {dtype} at B = 1 is not on the MMA GEMM")
+        t = timed_ms({"gemv": lambda: kernel(*args, **kw),
+                      "mma": lambda: pim_gemm.pim_gemm_int(*gemm_args,
+                                                           **kw)},
+                     KERNEL_REPS)
+        out[dtype] = {k: v["ms"] for k, v in t.items()}
+        print(f"[7] lm_head {dtype} B=1: pim_gemv_int "
+              f"{t['gemv']['ms']!r} ms, MMA GEMM {t['mma']['ms']!r} ms")
+    return out
 
 
 def library_call(dtype: str, w_op: torch.Tensor, x_op: torch.Tensor):
@@ -589,16 +725,20 @@ def main() -> int:
           or len(lane_ptxas) == len(lane_scan.SUPPORTED_BANKS),
           f"ptxas reported {len(lane_ptxas)} lane-scan kernels")
     gemm_log = build.BUILD_INFO["logs"].get("pim_gemm.cu", "")
-    mma_ptxas = {"pim_gemm_fp": ptxas_kernels(gemm_log, r"gemm_fp_mma_kernel"),
-                 "pim_gemm_int": ptxas_kernels(gemm_log,
-                                               r"gemm_int_mma_kernel")}
-    for name, want, params in (("pim_gemm_fp", 4, "XBYTES, NT"),
-                               ("pim_gemm_int", 8, "WBITS, XBYTES, NT")):
-        for k in mma_ptxas[name]:
+    gemv_log = build.BUILD_INFO["logs"].get("pim_gemv.cu", "")
+    kernel_ptxas = {
+        "pim_gemm_fp": ptxas_kernels(gemm_log, r"gemm_fp_mma_kernel"),
+        "pim_gemm_int": ptxas_kernels(gemm_log, r"gemm_int_mma_kernel"),
+        "pim_gemv_int": ptxas_kernels(gemv_log, r"gemv_int_rows_kernel")}
+    for name, log, want, params in (
+            ("pim_gemm_fp", gemm_log, 4, "XBYTES, NT"),
+            ("pim_gemm_int", gemm_log, 8, "WBITS, XBYTES, NT"),
+            ("pim_gemv_int", gemv_log, 16, "WBITS, XBYTES, R")):
+        for k in kernel_ptxas[name]:
             print(f"    ptxas {k['name']} ({params}): {k['registers']} "
                   f"registers, {k['spill_bytes']} spill bytes")
-        check(not gemm_log or len(mma_ptxas[name]) == want,
-              f"ptxas reported {len(mma_ptxas[name])} tensor-core {name} "
+        check(not log or len(kernel_ptxas[name]) == want,
+              f"ptxas reported {len(kernel_ptxas[name])} vector {name} "
               f"kernels, not {want}")
 
     # ---- 2. kernel == plain on the card ---------------------------------
@@ -919,7 +1059,12 @@ def main() -> int:
             "granite_8b_linear_wall_s": linear["wall"],
             "by_dtype": by_dtype,
             **({"variants": linear["variants"][name],
-                "ptxas": mma_ptxas[name]} if name in mma_ptxas else {})})
+                "ptxas": kernel_ptxas[name]} if name in kernel_ptxas
+               else {}),
+            **({"sites": {k: v for k, v in linear["gemv_int_sites"].items()
+                          if k != "sites"},
+                "mma_at_batch_1": linear["mma_at_batch_1"]}
+               if name == "pim_gemv_int" else {})})
 
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{

@@ -39,8 +39,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRY_POINTS = {
     # cycs, streams, lengths, issue, totals, F, N, num_banks, stream
     "lane_scan_launch": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
-    # w, x, ws, out, H, W, w_bits, x_bytes, vec, stream
-    "pim_gemv_int_launch": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
+    # w, x, ws, xs, out, H, W, w_bits, x_bytes, rows, stream
+    "pim_gemv_int_launch": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
     # w, x, out, H, W, x_bytes, vec, stream
     "pim_gemv_fp_launch": (_P, _P, _P, _I, _L, _I, _I, _P),
     # w, x, ws, out, B, H, W, w_bits, x_bytes, vec, stream

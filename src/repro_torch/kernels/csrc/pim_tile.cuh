@@ -1,7 +1,8 @@
 // Device code shared by the PIM-tile GEMV and GEMM kernels (pim_gemv.cu,
 // pim_gemm.cu): how one warp takes the dot products of one weight row
-// with up to NB activation rows, and (at the end) the tensor-core tile
-// layout, decoders and MMAs of the fp and int GEMMs.
+// with up to NB activation rows, the tensor-core tile layout, decoders
+// and MMAs of the fp and int GEMMs, and (at the end) one weight chunk of
+// the int GEMV's vector kernel, which gives a warp R rows.
 //
 // Layout: weights are row-major (H, row_bytes); int4 rows hold two signed
 // nibbles per byte, the low nibble being the even column.  Activations
@@ -424,5 +425,153 @@ __device__ __forceinline__ void mma_16832_s8(uint32_t (&d)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 }
+
+// ---- the int GEMV's vector path: R weight rows per warp ------------------
+//
+// A lane takes the same 16-byte chunk columns of R weight rows, so the
+// activations it loads for a chunk, and their rearranging, serve all R
+// rows; each weight word then takes one or two ops to decode and one dp4a
+// per activation word it meets.
+//
+// int16 activations: x = 256 hi + lo, hi the signed high byte and lo the
+// unsigned low one, split with one byte perm per plane and four columns
+// (as the int MMA GEMM does); the row sum is (sum w hi << 8) + sum w lo.
+// 8-bit weights meet the activations in column order.  int4 weights are
+// decoded where they lie: a weight word holds 8 columns, the even ones in
+// its low nibbles and the odd ones in its high nibbles, so one LOP3 (and
+// a shift for the high nibbles) masks them and flips their sign bits,
+// giving u = s + 8 in [0, 15] for each signed nibble s, and the
+// activations are rearranged once, into the matching even and odd
+// columns, for all R rows.  The sums are taken over u (dp4a with an
+// unsigned first operand) and corrected once per row by sum s x = sum u x
+// - 8 sum x, sum x being the same for every row.  All of it is exact mod
+// 2^32: dp4a adds without saturating, and any order of uint32_t sums
+// gives the same bits.
+
+// c + the four byte products of a and b, mod 2^32; SA, SB: a, b signed.
+template <bool SA, bool SB>
+__device__ __forceinline__ uint32_t dp4a(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t d;
+  if constexpr (SA && SB)
+    asm("dp4a.s32.s32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  else if constexpr (SA)
+    asm("dp4a.s32.u32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  else if constexpr (SB)
+    asm("dp4a.u32.s32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  else
+    asm("dp4a.u32.u32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// The low nibble of each byte of v, its sign bit flipped: u = s + 8 per
+// byte, (v & 0x0F0F0F0F) ^ 0x08080808 in one LOP3.
+__device__ __forceinline__ uint32_t nibs_biased(uint32_t v) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
+      : "=r"(d)
+      : "r"(v), "r"(0x0F0F0F0Fu), "r"(0x08080808u));
+  return d;
+}
+
+// One 16-byte weight chunk of a (WBITS, XBYTES) GEMV row: its kCols
+// columns, the kPieces 16-byte activation loads that match it, those
+// activations as int8x4 words (XS: the int8 values, or the hi and lo
+// planes of int16 ones; for 8-bit weights word k holds columns 4k ...
+// 4k+3, for int4 weights words 2q and 2q+1 the even and odd columns of
+// weight word q), and the chunk's dp4a into a row's sums (acc[0] the int8
+// / hi plane, acc[1] the lo plane).
+template <int WBITS, int XBYTES>
+struct GemvChunk {
+  static constexpr int kCols = 16 * 8 / WBITS;
+  static constexpr int kWords = kCols / 4;
+  static constexpr int kPieces = kCols * XBYTES / 16;
+  struct XS { uint32_t hi[kWords], lo[XBYTES == 2 ? kWords : 1]; };
+
+  // Activation word i (4 int8 or 2 int16 columns) of the chunk.
+  __device__ static uint32_t xw(const int4 (&p)[kPieces], int i) {
+    return word(p[i / 4], i % 4);
+  }
+
+  // The chunk's activations as XS; for int4 weights also adds their sum
+  // to xsum (per plane), for the correction.
+  __device__ static XS split(const int4 (&p)[kPieces],
+                             uint32_t (&xsum)[XBYTES]) {
+    XS xs;
+    if constexpr (WBITS == 8) {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {
+        if constexpr (XBYTES == 1) {
+          xs.hi[k] = xw(p, k);
+        } else {                   // columns 4k ... 4k+3: words 2k, 2k+1
+          xs.hi[k] = __byte_perm(xw(p, 2 * k), xw(p, 2 * k + 1), 0x7531);
+          xs.lo[k] = __byte_perm(xw(p, 2 * k), xw(p, 2 * k + 1), 0x6420);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kWords / 2; ++q) {   // columns 8q ... 8q+7
+        if constexpr (XBYTES == 1) {
+          const uint32_t a = xw(p, 2 * q), b = xw(p, 2 * q + 1);
+          xs.hi[2 * q] = __byte_perm(a, b, 0x6420);
+          xs.hi[2 * q + 1] = __byte_perm(a, b, 0x7531);
+        } else {                   // column order first, then even / odd
+          const uint32_t x0 = xw(p, 4 * q), x1 = xw(p, 4 * q + 1);
+          const uint32_t x2 = xw(p, 4 * q + 2), x3 = xw(p, 4 * q + 3);
+          const uint32_t ha = __byte_perm(x0, x1, 0x7531);
+          const uint32_t hb = __byte_perm(x2, x3, 0x7531);
+          const uint32_t la = __byte_perm(x0, x1, 0x6420);
+          const uint32_t lb = __byte_perm(x2, x3, 0x6420);
+          xs.hi[2 * q] = __byte_perm(ha, hb, 0x6420);
+          xs.hi[2 * q + 1] = __byte_perm(ha, hb, 0x7531);
+          xs.lo[2 * q] = __byte_perm(la, lb, 0x6420);
+          xs.lo[2 * q + 1] = __byte_perm(la, lb, 0x7531);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {
+        xsum[0] = dp4a<true, false>(xs.hi[k], 0x01010101u, xsum[0]);
+        if constexpr (XBYTES == 2)
+          xsum[1] = dp4a<false, false>(xs.lo[k], 0x01010101u, xsum[1]);
+      }
+    }
+    return xs;
+  }
+
+  __device__ static void mac(const int4& c, const XS& xs,
+                             uint32_t (&acc)[XBYTES]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t w = word(c, q);
+      if constexpr (WBITS == 8) {  // columns 4q ... 4q+3: word q
+        acc[0] = dp4a<true, true>(w, xs.hi[q], acc[0]);
+        if constexpr (XBYTES == 2)
+          acc[1] = dp4a<true, false>(w, xs.lo[q], acc[1]);
+      } else {                     // even and odd columns: words 2q, 2q+1
+        const uint32_t ue = nibs_biased(w), uo = nibs_biased(w >> 4);
+        acc[0] = dp4a<false, true>(ue, xs.hi[2 * q], acc[0]);
+        acc[0] = dp4a<false, true>(uo, xs.hi[2 * q + 1], acc[0]);
+        if constexpr (XBYTES == 2) {
+          acc[1] = dp4a<false, false>(ue, xs.lo[2 * q], acc[1]);
+          acc[1] = dp4a<false, false>(uo, xs.lo[2 * q + 1], acc[1]);
+        }
+      }
+    }
+  }
+
+  // A lane's share of one row: the planes combined and, for int4
+  // weights, the u = s + 8 bias taken off (8 sum x).
+  __device__ static uint32_t finish(const uint32_t (&acc)[XBYTES],
+                                    const uint32_t (&xsum)[XBYTES]) {
+    uint32_t v = acc[0];
+    if constexpr (XBYTES == 2) v = (v << 8) + acc[1];
+    if constexpr (WBITS == 4) {
+      uint32_t sx = xsum[0];
+      if constexpr (XBYTES == 2) sx = (sx << 8) + xsum[1];
+      v -= sx << 3;
+    }
+    return v;
+  }
+};
 
 }  // namespace pim

@@ -3,10 +3,14 @@
 The TPU kernels this replaces (``repro/kernels/pim_gemv.py``) walk
 ``(BH, BW)`` VMEM blocks with an int32/float32 scratch accumulator
 revisited across the reduction grid axis, and dequantize in the final
-step's flush.  On the card one warp owns one output row: it streams the
-weight row in 16-byte loads, unpacks int4 in registers, sums in
-registers, reduces across the warp and dequantizes in the epilogue.  The
-kernel masks the ragged edge itself; nothing is padded or copied.
+step's flush.  On the card the fp GEMV gives each output row a warp that
+streams the weight row in 16-byte loads.  The int GEMV's vector kernel
+gives a warp R rows, whose lanes load and rearrange each activation
+chunk once for all R; :func:`gemv_int_variant` picks R by format and
+``H`` (``"rows1"`` ... ``"rows8"``), and operands that are not 16-byte
+aligned go ``"bytes"``, a byte at a time.  ``GEMV_INT_VARIANT_LAUNCHES``
+counts each variant's launches.  The kernels mask the ragged edge
+themselves; nothing is padded or copied.
 
 Each kernel sits beside its plain torch version, which repeats its
 arithmetic (int sums exact mod 2**32, then ``acc * (w_scale * x_scale)``
@@ -22,19 +26,37 @@ from .ref import int_matmul, unpack_w4
 # Kernel launches so far, by kernel (the plain versions never count).
 LAUNCHES = {"pim_gemv_int": 0, "pim_gemv_fp": 0}
 
+# The int GEMV's launches by kernel variant (see gemv_int_variant).
+GEMV_INT_VARIANT_LAUNCHES = {"rows1": 0, "rows2": 0, "rows4": 0, "rows8": 0,
+                             "bytes": 0}
+# Weight rows per warp of the int GEMV's vector kernel, by (w_bits,
+# activation bytes): (R for small H, R for large H).  Large: H fills at
+# least GEMV_INT_ROWS_MIN_BLOCKS blocks of 8 warps x R rows (two per SM of
+# an H100's 132).  Timed at the granite-8b decode sites on an H100
+# (tools/gemv_int_sites.py --table; PERF.md): sharing each activation
+# load among R rows pays at W4A16 at every size, at W8A16 and int4 x int8
+# only where many rows keep the card full.
+GEMV_INT_ROWS = {(8, 1): (1, 1), (8, 2): (1, 4), (4, 1): (1, 4),
+                 (4, 2): (2, 2)}
+GEMV_INT_ROWS_MIN_BLOCKS = 264
+
 INT_X_DTYPES = {torch.int8: 1, torch.int16: 2}
 FP_X_DTYPES = {torch.float8_e4m3fn: 1, torch.bfloat16: 2}
+
+
+def scalar_scale(x_scale, device) -> torch.Tensor:
+    """``x_scale`` as a 0-d float32 tensor on ``device``."""
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=device)
+    if xs.numel() != 1:
+        raise ValueError(f"x_scale must be a scalar, got shape "
+                         f"{tuple(xs.shape)}")
+    return xs.reshape(())
 
 
 def row_scale(w_scale: torch.Tensor, x_scale) -> torch.Tensor:
     """The dequantizing factor per row, ``w_scale * x_scale`` in float32
     (computed once, before the sum, as the TPU kernel's wrapper does)."""
-    xs = torch.as_tensor(x_scale, dtype=torch.float32,
-                         device=w_scale.device)
-    if xs.numel() != 1:
-        raise ValueError(f"x_scale must be a scalar, got shape "
-                         f"{tuple(xs.shape)}")
-    return (w_scale * xs.reshape(())).contiguous()
+    return (w_scale * scalar_scale(x_scale, w_scale.device)).contiguous()
 
 
 def weight_width(wq: torch.Tensor, w_bits: int) -> int:
@@ -100,6 +122,49 @@ def pim_gemv_int_plain(wq, x_q, w_scale, x_scale, *, w_bits: int = 8
     return int_matmul(w, x_q).float() * row_scale(w_scale, x_scale)
 
 
+def gemv_int_variant(wq: torch.Tensor, x_q: torch.Tensor,
+                     w_bits: int) -> str:
+    """The ``pim_gemv_int`` kernel these operands take on the card, by
+    shape and alignment alone: ``"bytes"`` (one byte at a time) unless
+    both are 16-byte aligned and a (packed) weight row is a multiple of
+    16 bytes; else ``"rowsR"``, the vector kernel with R rows per warp
+    from :data:`GEMV_INT_ROWS`."""
+    if not vector_ok(wq.shape[1], wq, x_q):
+        return "bytes"
+    small, large = GEMV_INT_ROWS[(w_bits, INT_X_DTYPES[x_q.dtype])]
+    full = wq.shape[0] >= GEMV_INT_ROWS_MIN_BLOCKS * 8 * large
+    return f"rows{large if full else small}"
+
+
+def gemv_int_launch(wq: torch.Tensor, x_q: torch.Tensor,
+                    w_scale: torch.Tensor, x_scale, *, w_bits: int,
+                    variant: str) -> torch.Tensor:
+    """Launch the int GEMV kernel ``variant`` (a key of
+    ``GEMV_INT_VARIANT_LAUNCHES``) on CUDA operands the wrapper checked:
+    f32 ``(H,)``.  :func:`pim_gemv_int` calls it with the variant of
+    :func:`gemv_int_variant`; timing tools call it with others.  Counts
+    the launch."""
+    from repro_torch.kernels import build
+
+    rows = 0 if variant == "bytes" else int(variant.removeprefix("rows"))
+    if rows and not vector_ok(wq.shape[1], wq, x_q):
+        raise ValueError(f"pim_gemv_int: the {variant!r} kernel needs "
+                         f"16-byte aligned operands and rows")
+    xs = scalar_scale(x_scale, wq.device)
+    h, w = wq.shape[0], weight_width(wq, w_bits)
+    out = torch.empty(h, dtype=torch.float32, device=wq.device)
+    if h == 0:
+        return out
+    with torch.cuda.device(wq.device):
+        build.launch("pim_gemv_int_launch", wq.data_ptr(), x_q.data_ptr(),
+                     w_scale.data_ptr(), xs.data_ptr(), out.data_ptr(), h, w,
+                     w_bits, INT_X_DTYPES[x_q.dtype], rows,
+                     torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["pim_gemv_int"] += 1
+    GEMV_INT_VARIANT_LAUNCHES[variant] += 1
+    return out
+
+
 def pim_gemv_int(wq: torch.Tensor, x_q: torch.Tensor,
                  w_scale: torch.Tensor, x_scale, *, w_bits: int = 8
                  ) -> torch.Tensor:
@@ -107,26 +172,15 @@ def pim_gemv_int(wq: torch.Tensor, x_q: torch.Tensor,
 
     ``y[h] = f32(sum_w Wq[h, w] * x_q[w] mod 2**32) * (w_scale[h] *
     x_scale)``.  CPU tensors run :func:`pim_gemv_int_plain`; CUDA tensors
-    launch the kernel on the current stream or raise.
+    launch the kernel on the current stream or raise (the kernel forms
+    the row scale ``w_scale * x_scale`` itself, as :func:`row_scale`
+    does).
     """
     dev = _check_int(wq, x_q, w_scale, w_bits)
     if dev.type == "cpu":
         return pim_gemv_int_plain(wq, x_q, w_scale, x_scale, w_bits=w_bits)
-    from repro_torch.kernels import build
-
-    h, w = wq.shape[0], weight_width(wq, w_bits)
-    ws = row_scale(w_scale, x_scale)
-    out = torch.empty(h, dtype=torch.float32, device=dev)
-    if h == 0:
-        return out
-    with torch.cuda.device(dev):
-        build.launch("pim_gemv_int_launch", wq.data_ptr(), x_q.data_ptr(),
-                     ws.data_ptr(), out.data_ptr(), h, w, w_bits,
-                     INT_X_DTYPES[x_q.dtype],
-                     vector_ok(wq.shape[1], wq, x_q),
-                     torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["pim_gemv_int"] += 1
-    return out
+    return gemv_int_launch(wq, x_q, w_scale, x_scale, w_bits=w_bits,
+                           variant=gemv_int_variant(wq, x_q, w_bits))
 
 
 def _check_fp(w_fp8, x) -> torch.device:

@@ -495,6 +495,93 @@ def test_gemm_int_tensor_core_edges(dev, fmt, w):
         variants, bytes=variants["bytes"] + 1)
 
 
+def gemv_int_expect(wq, x, fmt, variant, dev, via_wrapper=True):
+    """One int GEMV launch held bit for bit to plain, on ``variant``
+    (counted once there): through ``pim_gemv_int``, which must choose
+    it, or through ``gemv_int_launch``, told to take it."""
+    w_bits = INT_FORMATS[fmt][0]
+    h = wq.shape[0]
+    ws = torch.linspace(0.5, 2.0, h, device=dev)
+    before = dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES)
+    if via_wrapper:
+        assert pim_gemv.gemv_int_variant(wq, x, w_bits) == variant
+        out = held_to_plain("pim_gemv_int", wq, x, ws, 0.37, w_bits=w_bits)
+    else:
+        out = pim_gemv.gemv_int_launch(wq, x, ws, 0.37, w_bits=w_bits,
+                                       variant=variant)
+        want = pim_gemv.pim_gemv_int_plain(wq, x, ws, 0.37, w_bits=w_bits)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (fmt, variant, h)
+    assert pim_gemv.GEMV_INT_VARIANT_LAUNCHES == dict(
+        before, **{variant: before[variant] + 1})
+    assert out.shape == (h,)
+
+
+def gemv_rows(fmt: str) -> tuple[int, int, int]:
+    """R for small and large H, and the least H that takes the large."""
+    w_bits, x_dtype = INT_FORMATS[fmt]
+    small, large = pim_gemv.GEMV_INT_ROWS[(w_bits, x_dtype.itemsize)]
+    return small, large, pim_gemv.GEMV_INT_ROWS_MIN_BLOCKS * 8 * large
+
+
+@pytest.mark.parametrize("w", [32, 64, 4096, 4128, 14336])
+@pytest.mark.parametrize("fmt", INT_FORMATS)
+def test_gemv_int_vector_edges(dev, fmt, w):
+    """The int GEMV's vector kernel bit for bit against plain at the
+    edges of its warps' row groups -- H = 1, R - 1, R + 1, 15, 17, 1024,
+    1025, all on the small-H R -- and widths up to mlp.wo's 14336, with
+    the weight extremes and the byte planes' extremes; a misaligned view
+    goes byte-wise."""
+    small = gemv_rows(fmt)[0]
+    gen = torch.Generator().manual_seed(w + INT_FORMATS[fmt][0])
+    for h in sorted({1, max(1, small - 1), small + 1, 15, 17, 1024, 1025}):
+        wq, xb = int_gemm_operands(gen, 1, h, w, fmt, dev)
+        gemv_int_expect(wq, xb[0], fmt, f"rows{small}", dev)
+    smoke = _chip_smoke()
+    wq, xb = int_gemm_operands(gen, 1, 17, w, fmt, dev)
+    gemv_int_expect(smoke.misaligned(wq), smoke.misaligned(xb[0]), fmt,
+                    "bytes", dev)
+
+
+@pytest.mark.parametrize("fmt", INT_FORMATS)
+def test_gemv_int_large_h_edges(dev, fmt):
+    """Around the least H that takes the large-H R: one row short of it,
+    at it, and a ragged last row group past it."""
+    small, large, least = gemv_rows(fmt)
+    gen = torch.Generator().manual_seed(INT_FORMATS[fmt][0] + 5)
+    for h, rows in ((least - 1, small), (least, large),
+                    (least + large + 1, large)):
+        for w in (32, 4128):
+            wq, xb = int_gemm_operands(gen, 1, h, w, fmt, dev)
+            gemv_int_expect(wq, xb[0], fmt, f"rows{rows}", dev)
+
+
+@pytest.mark.parametrize("fmt", INT_FORMATS)
+def test_gemv_int_every_variant(dev, fmt):
+    """Every vector instantiation (1, 2, 4, 8 rows per warp) bit for bit
+    against plain on ragged shapes: rows past a block's 8 R, widths
+    ending inside a pass of 32 x U chunks."""
+    gen = torch.Generator().manual_seed(11)
+    for h, w in ((37, 4128), (9, 64), (1030, 32), (67, 14336)):
+        wq, xb = int_gemm_operands(gen, 1, h, w, fmt, dev)
+        for variant in pim_gemv.GEMV_INT_VARIANT_LAUNCHES:
+            if variant != "bytes":
+                gemv_int_expect(wq, xb[0], fmt, variant, dev,
+                                via_wrapper=False)
+
+
+def test_gemv_int_w4a16_wraparound_on_card(dev):
+    """7 * 32767 * 16384 passes 2^31: the W4A16 GEMV's byte-plane sums
+    and the int4 bias correction wrap as int32 does."""
+    wq = ref.pack_w4(torch.full((8, 16384), 7, dtype=torch.int8)).to(dev)
+    xq = torch.full((16384,), 32767, dtype=torch.int16, device=dev)
+    ws = torch.linspace(0.5, 1.5, 8, device=dev)
+    assert pim_gemv.gemv_int_variant(wq, xq, 4) == "rows2"
+    out = held_to_plain("pim_gemv_int", wq, xq, ws, 1.0, w_bits=4)
+    wrapped = 7 * 32767 * 16384 - (1 << 32)
+    assert torch.equal(out, torch.tensor(float(wrapped), device=dev) * ws)
+
+
 def test_prepare_weights_on_card_gives_the_cpu_bytes(dev):
     rng = np.random.default_rng(3)
     wf = (rng.standard_normal((300, 512)) * 0.02).astype(np.float32)
@@ -522,6 +609,7 @@ def test_granite_8b_linear_fixture_on_card(dev):
     before = {name: mod.LAUNCHES[name] for name, mod in PIM.items()}
     variants = dict(pim_gemm.FP_VARIANT_LAUNCHES)
     int_variants = dict(pim_gemm.INT_VARIANT_LAUNCHES)
+    gemv_variants = dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES)
     for index, site in enumerate(fixture["sites"]):
         wts, acts = smoke.site_inputs(fixture["seed"], index, site["h"],
                                       site["w"])
@@ -543,3 +631,8 @@ def test_granite_8b_linear_fixture_on_card(dev):
     assert pim_gemm.INT_VARIANT_LAUNCHES == dict(
         int_variants, mma=int_variants["mma"]
         + pim_gemm.LAUNCHES["pim_gemm_int"] - before["pim_gemm_int"])
+    # ... and every int GEMV a vector variant.
+    gemv = pim_gemv.GEMV_INT_VARIANT_LAUNCHES
+    assert gemv["bytes"] == gemv_variants["bytes"]
+    assert sum(gemv.values()) - sum(gemv_variants.values()) == (
+        pim_gemv.LAUNCHES["pim_gemv_int"] - before["pim_gemv_int"])

@@ -84,12 +84,36 @@ def _int_operands(rng, h, w, b, w_bits, a_bits):
 # Kernels and oracles against the JAX package
 # ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("h,w", SHAPES)
+def _put_extremes(wk, xq, w_bits, a_bits):
+    """A row of -128 / 127 (int4 -8 / 7) weights, and the activation type's
+    extremes (int16: also the byte planes' -1, 255 and 256) at both ends."""
+    lo, hi = -2 ** (w_bits - 1), 2 ** (w_bits - 1) - 1
+    wq = np.array(jref.unpack_w4(wk)) if w_bits == 4 else wk.copy()
+    wq[wq.shape[0] // 2] = np.where(np.arange(wq.shape[1]) % 2, hi, lo)
+    wk = np.asarray(jref.pack_w4(wq)) if w_bits == 4 else wq
+    edge = [-2 ** (a_bits - 1), 2 ** (a_bits - 1) - 1, -1, 0]
+    edge += [255, 256] if a_bits == 16 else []
+    xq = xq.copy()
+    xq[:len(edge)] = edge
+    xq[-len(edge):] = edge
+    return wk, xq
+
+
+# The card's int GEMV gives a warp R rows (1, 2 or 4): H = 1, 2, 3, 5, 15,
+# 17, 1024, 1025 and widths up to mlp.wo's 14336, with the extremes of
+# _put_extremes.
+GEMV_EDGE_SHAPES = [(h, w) for h in (1, 2, 3, 5, 15, 17, 1024, 1025)
+                    for w in (32, 64, 4096, 4128, 14336)]
+
+
+@pytest.mark.parametrize("h,w", SHAPES + GEMV_EDGE_SHAPES)
 @pytest.mark.parametrize("w_bits", [8, 4])
 @pytest.mark.parametrize("a_bits", [8, 16])
 def test_gemv_int_bit_for_bit(h, w, w_bits, a_bits):
     rng = np.random.default_rng(h * 1000 + w + w_bits + a_bits)
     wk, xq, ws, xs = _int_operands(rng, h, w, None, w_bits, a_bits)
+    if (h, w) in GEMV_EDGE_SHAPES:
+        wk, xq = _put_extremes(wk, xq, w_bits, a_bits)
     want = jax_gemv_int(jnp.asarray(wk), jnp.asarray(xq), jnp.asarray(ws),
                         xs, w_bits=w_bits, block=BLOCK, interpret=True)
     before = dict(pim_gemv.LAUNCHES)
@@ -388,6 +412,42 @@ def test_int_gemm_variant_is_chosen_by_shape_and_alignment(w_bits, w,
     out = pim_gemm.pim_gemm_int(wq, xb, torch.ones(17), 0.5, w_bits=w_bits)
     assert out.shape == (9, 17)
     assert pim_gemm.INT_VARIANT_LAUNCHES == before
+
+
+@pytest.mark.parametrize("w_bits,x_dtype,h,w,skew,want", [
+    (8, torch.int8, 49152, 32, None, "rows1"),         # lm_head
+    (8, torch.int16, 8448, 32, None, "rows4"),         # 264 blocks of 32
+    (8, torch.int16, 8447, 32, None, "rows1"),
+    (8, torch.int16, 4096, 4096, None, "rows1"),       # attn.wq, attn.wo
+    (4, torch.int8, 14336, 64, None, "rows4"),         # mlp.w0 / w1
+    (4, torch.int8, 1024, 4096, None, "rows1"),        # attn.wk / wv
+    (4, torch.int16, 49152, 32, None, "rows2"),
+    (4, torch.int16, 1, 32, None, "rows2"),
+    (4, torch.int16, 17, 48, None, "bytes"),           # 24-byte rows
+    (8, torch.int8, 17, 200, None, "bytes"),
+    (8, torch.int8, 8448, 32, "w", "bytes"),
+    (4, torch.int16, 17, 4096, "x", "bytes"),
+])
+def test_gemv_int_variant_is_chosen_by_shape_and_alignment(w_bits, x_dtype,
+                                                           h, w, skew, want):
+    """The int GEMV's kernel on the card: R rows per warp by format, the
+    larger R where H fills GEMV_INT_ROWS_MIN_BLOCKS blocks of 8 x R;
+    "bytes" for misaligned operands or rows that are not a multiple of
+    16 bytes.  On CPU tensors the wrapper runs the plain version and
+    counts nothing."""
+    wq = torch.ones((h, w * w_bits // 8), dtype=torch.int8)
+    x = torch.ones(w, dtype=x_dtype)
+    if skew == "w":
+        wq = chip_smoke.misaligned(wq)
+    if skew == "x":
+        x = chip_smoke.misaligned(x)
+    assert pim_gemv.gemv_int_variant(wq, x, w_bits) == want
+    before = (dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES),
+              dict(pim_gemv.LAUNCHES))
+    out = pim_gemv.pim_gemv_int(wq, x, torch.ones(h), 0.5, w_bits=w_bits)
+    assert out.shape == (h,)
+    assert (dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES),
+            dict(pim_gemv.LAUNCHES)) == before
 
 
 # ---------------------------------------------------------------------

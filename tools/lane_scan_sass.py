@@ -2,6 +2,16 @@
 """Count the SASS instructions one lane-scan step issues.
 
     python3 tools/lane_scan_sass.py [--source FILE] [--nb 16] [--out DIR]
+    python3 tools/lane_scan_sass.py --source FILE --kernel PATTERN \
+        --chunks N [--kernel PATTERN --chunks N ...]
+
+The second form counts other kernels' hot loops: for each function whose
+mangled name matches the regular expression ``PATTERN`` (for example
+``gemv_int_kernelILi4ELi2E``), its innermost loop found as below, and
+the instructions of the longest path through that loop (its steady
+state, where every guarded chunk is taken) divided by ``N``, the work
+units (16-byte weight chunks, say) one pass of the loop handles; each
+``--kernel`` pairs with the ``--chunks`` in its place.
 
 Compiles ``FILE`` (default: the port's ``csrc/lane_scan.cu``) to a cubin
 for ``sm_90a`` with the library's own flags plus ``-lineinfo`` (which
@@ -151,6 +161,25 @@ def shortest_path(blocks: list[list[dict]], allowed: list[bool],
     return best.get((len(blocks) - 1, True))
 
 
+def longest_path(blocks: list[list[dict]]) -> int:
+    """Most instructions from the loop's first block to its last (the
+    back branch), over forward edges."""
+    at = {b[0]["label"]: k for k, b in enumerate(blocks) if b[0]["label"]}
+    best = {0: len(blocks[0])}
+    for k, b in enumerate(blocks):
+        if k not in best:
+            continue
+        text = b[-1]["text"]
+        m = TARGET.search(text) if BRANCH.match(text) else None
+        nxt = [at[m.group(1)]] if m and m.group(1) in at else []
+        if not (m and not text.startswith("@")):
+            nxt.append(k + 1)
+        for n in nxt:
+            if k < n < len(blocks):
+                best[n] = max(best.get(n, 0), best[k] + len(blocks[n]))
+    return best.get(len(blocks) - 1, max(best.values()))
+
+
 def closing(src: list[str], start: int) -> int:
     """Index of the line that closes the block opened at ``start``: the
     next line at its indentation that starts with ``}``."""
@@ -199,6 +228,33 @@ def opcode_mix(insns: list[dict]) -> dict:
     return dict(kinds.most_common())
 
 
+def count_loop(funcs: dict, args) -> int:
+    """The ``--kernel`` form: one JSON object per matching function."""
+    chunks = args.chunks or []
+    if len(chunks) != len(args.kernel):
+        raise SystemExit("give one --chunks for each --kernel")
+    for pattern, per in zip(args.kernel, chunks):
+        count_one(funcs, args.source, pattern, per)
+    return 0
+
+
+def count_one(funcs: dict, source, pattern: str, per: float) -> None:
+    names = [n for n in funcs if re.search(pattern, n)]
+    if not names:
+        raise SystemExit(f"no function matches {pattern!r} among "
+                         f"{list(funcs)}")
+    for name in names:
+        insns = [i for i in funcs[name] if i["text"] != "NOP"]
+        first, last = step_loop(insns)
+        loop = insns[first:last + 1]
+        path = longest_path(basic_blocks(loop))
+        print(json.dumps(dict(
+            source=str(source), function=name,
+            kernel_instructions=len(insns), loop_instructions=len(loop),
+            loop_longest_path=path, chunks_per_pass=per,
+            per_chunk=path / per, loop_mix=opcode_mix(loop))))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", type=pathlib.Path,
@@ -206,9 +262,16 @@ def main() -> int:
     ap.add_argument("--nb", type=int, default=16)
     ap.add_argument("--out", type=pathlib.Path,
                     default=ROOT / "chiprun_out" / "sass")
+    ap.add_argument("--kernel", action="append", help="regex of another "
+                    "kernel's mangled name: count its loop's longest path "
+                    "instead")
+    ap.add_argument("--chunks", type=float, action="append",
+                    help="work units per pass of that loop")
     args = ap.parse_args()
 
     funcs = functions(disassemble(args.source, args.out))
+    if args.kernel:
+        return count_loop(funcs, args)
     names = [n for n in funcs
              if "lane_scan_kernel" in n and f"ILi{args.nb}E" in n]
     if len(names) != 1:
