@@ -360,9 +360,9 @@ def pim_kernels_vs_plain(dev, mods: dict, plain: dict) -> dict:
     # smallest H that takes the large-H R; each shape's variant is
     # asserted.
     for w_bits, a_bits in INT_FORMATS.values():
-        small, large = pim_gemv.GEMV_INT_ROWS[(w_bits, 2 if a_bits == 16
-                                               else 1)]
-        least = pim_gemv.GEMV_INT_ROWS_MIN_BLOCKS * 8 * large
+        x_bytes = 2 if a_bits == 16 else 1
+        small, large = pim_gemv.GEMV_INT_ROWS[(w_bits, x_bytes)]
+        least = pim_gemv.gemv_int_large_h(w_bits, x_bytes, dev)
         shapes = [(h, w) for h in sorted({1, max(1, small - 1), small + 1,
                                           15, 17, 1024, 1025})
                   for w in (32, 64, 4096, 4128, 14336)]
@@ -479,13 +479,14 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
           "the fixture's sites are not granite-8b's decode GEMV sites")
     heavy: dict = {}
     gemv_calls: dict = {}
-    now: dict = {}
+    now: dict = {"gemv_calls": False}
 
     def keep_lm_head(name, out, args, kw):
-        if now["site"] == "lm_head":
+        if now["gemv_calls"]:
+            if name == "pim_gemv_int":
+                gemv_calls[(now["site"], now["dtype"])] = (out, args, kw)
+        elif now["site"] == "lm_head":
             heavy[(name, now["dtype"])] = (out, args, kw)
-        if name == "pim_gemv_int":
-            gemv_calls[(now["site"], now["dtype"])] = (out, args, kw)
 
     from repro_torch.kernels import pim_gemm, pim_gemv
 
@@ -514,11 +515,23 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
         del wd, xd, qw
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    restore_pim_kernels(mods, real)
     launches = {name: mod.LAUNCHES[name] for name, mod in mods.items()}
     variants = {"pim_gemm_fp": dict(pim_gemm.FP_VARIANT_LAUNCHES),
                 "pim_gemm_int": dict(pim_gemm.INT_VARIANT_LAUNCHES),
                 "pim_gemv_int": dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES)}
+    # The int GEMV's operands at every site, made again after the timed
+    # pass (which frees each site's before the next) for the site timings.
+    now["gemv_calls"] = True
+    for index, site in enumerate(sites):
+        wts, acts = site_inputs(fixture["seed"], index, site["h"],
+                                site["w"])
+        wd, xd = torch.from_numpy(wts).to(dev), torch.from_numpy(acts).to(dev)
+        for dtype in ALL_DTYPES:
+            if not dtype.is_fp:
+                now.update(site=site["name"], dtype=dtype.name)
+                ops.pim_linear(xd[0], ops.prepare_weights(wd, dtype,
+                                                          device=dev))
+    restore_pim_kernels(mods, real)
     check(all(n > 0 for n in launches.values()),
           f"granite_8b_linear did not launch every kernel: {launches}")
     for name in ("pim_gemm_fp", "pim_gemm_int"):
@@ -539,6 +552,15 @@ def granite_8b_linear(dev, mods: dict, plain: dict, fixture: dict) -> dict:
         lambda args, kw: pim_gemv.gemv_int_variant(args[0], args[1],
                                                    kw["w_bits"]))
     mma_b1 = mma_at_batch_1(real["pim_gemv_int"], gemv_calls)
+    # The protocol's floor: a 1 x 32 W8A8 GEMV, whose bytes take
+    # nanoseconds (x_scale on the card, as pim_linear gives it).
+    args = (torch.ones((1, 32), dtype=torch.int8, device=dev),
+            torch.ones(32, dtype=torch.int8, device=dev),
+            torch.ones(1, device=dev), torch.ones((), device=dev))
+    floor = timed_ms({"kernel": lambda: real["pim_gemv_int"](*args)},
+                     KERNEL_REPS)["kernel"]
+    print(f"[7] pim_gemv_int floor, 1 x 32 W8A8: {json.dumps(floor)}")
+    sites["floor"] = floor
     timed = {}
     for (name, dtype), (out, args, kw) in sorted(heavy.items()):
         timed[(name, dtype)] = time_kernel(name, dtype, real[name],
@@ -733,7 +755,7 @@ def main() -> int:
     for name, log, want, params in (
             ("pim_gemm_fp", gemm_log, 4, "XBYTES, NT"),
             ("pim_gemm_int", gemm_log, 8, "WBITS, XBYTES, NT"),
-            ("pim_gemv_int", gemv_log, 16, "WBITS, XBYTES, R")):
+            ("pim_gemv_int", gemv_log, 6, "WBITS, XBYTES, R")):
         for k in kernel_ptxas[name]:
             print(f"    ptxas {k['name']} ({params}): {k['registers']} "
                   f"registers, {k['spill_bytes']} spill bytes")

@@ -61,20 +61,16 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x % kWarp == 0) out[h] = dequant(sum, __fmul_rn(ws[h], *xs));
 }
 
-// Chunk columns in flight per lane and row: R x U loads, at most 16.
-template <int R>
-constexpr int kRowsUnroll = R >= 8 ? 2 : kUnroll;
-
-// One pass of a lane over U chunk columns (a warp's width apart) of its R
-// rows: every load first, then the math; then the pointers move on.  A
-// full pass loads all U; the last, partial one only the chunks before
-// `left` and the rest not at all.
-template <class Op, int R, int U, bool kFull, int XBYTES>
+// One pass of a lane over U = kUnroll chunk columns (a warp's width
+// apart) of its R rows: every load first, then the math; then the
+// pointers move on.  A full pass loads all U; the last, partial one only
+// the chunks before `left` and the rest not at all.
+template <class Op, int R, bool kFull, int XBYTES>
 __device__ __forceinline__ void rows_pass(const int4* (&wp)[R],
                                           const int4*& xp, long long left,
                                           uint32_t (&acc)[R][XBYTES],
                                           uint32_t (&xsum)[XBYTES]) {
-  constexpr int kP = Op::kPieces;
+  constexpr int kP = Op::kPieces, U = kUnroll;
   int4 wv[U][R];
   int4 xv[U][kP];
 #pragma unroll
@@ -108,7 +104,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ xs, float* __restrict__ out,
                          int H, long long W) {
   using Op = GemvChunk<WBITS, XBYTES>;
-  constexpr int U = kRowsUnroll<R>;
+  constexpr int U = kUnroll;
   const int lane = threadIdx.x % kWarp;
   const long long h0 =
       (static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp)
@@ -125,8 +121,8 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t xsum[XBYTES] = {};
   long long left = row_bytes / 16 - lane;     // chunks from this one on
   for (; left > (U - 1) * kWarp; left -= U * kWarp)
-    rows_pass<Op, R, U, true>(wp, xp, left, acc, xsum);
-  if (left > 0) rows_pass<Op, R, U, false>(wp, xp, left, acc, xsum);
+    rows_pass<Op, R, true>(wp, xp, left, acc, xsum);
+  if (left > 0) rows_pass<Op, R, false>(wp, xp, left, acc, xsum);
 
   const float x_scale = *xs;
 #pragma unroll
@@ -163,23 +159,32 @@ cudaError_t launch_rows(const void* w, const void* x, const float* ws,
   return cudaGetLastError();
 }
 
+// Weight rows per warp of the vector kernel, by format: R for small H and
+// for large H, as the wrapper picks them (pim_gemv.py, GEMV_INT_ROWS);
+// only these are built.
+template <int WBITS, int XBYTES> struct Rows;
+template <> struct Rows<8, 1> { static constexpr int kSmall = 1, kLarge = 1; };
+template <> struct Rows<8, 2> { static constexpr int kSmall = 1, kLarge = 4; };
+template <> struct Rows<4, 1> { static constexpr int kSmall = 1, kLarge = 4; };
+template <> struct Rows<4, 2> { static constexpr int kSmall = 2, kLarge = 2; };
+
 template <int WBITS, int XBYTES>
 cudaError_t launch_int(const void* w, const void* x, const float* ws,
                        const float* xs, float* out, int H, long long W,
                        int rows, cudaStream_t s) {
-  switch (rows) {
-    case 0:
-      gemv_int_kernel<WBITS, XBYTES><<<grid_for(H), kThreads, 0, s>>>(
-          static_cast<const uint8_t*>(w),
-          static_cast<const typename IntOp<WBITS, XBYTES>::X*>(x), ws, xs,
-          out, H, W);
-      return cudaGetLastError();
-    case 1: return launch_rows<WBITS, XBYTES, 1>(w, x, ws, xs, out, H, W, s);
-    case 2: return launch_rows<WBITS, XBYTES, 2>(w, x, ws, xs, out, H, W, s);
-    case 4: return launch_rows<WBITS, XBYTES, 4>(w, x, ws, xs, out, H, W, s);
-    case 8: return launch_rows<WBITS, XBYTES, 8>(w, x, ws, xs, out, H, W, s);
-    default: return cudaErrorInvalidValue;
+  using R = Rows<WBITS, XBYTES>;
+  if (rows == 0) {
+    gemv_int_kernel<WBITS, XBYTES><<<grid_for(H), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(w),
+        static_cast<const typename IntOp<WBITS, XBYTES>::X*>(x), ws, xs, out,
+        H, W);
+    return cudaGetLastError();
   }
+  if (rows == R::kSmall)
+    return launch_rows<WBITS, XBYTES, R::kSmall>(w, x, ws, xs, out, H, W, s);
+  if (rows == R::kLarge)
+    return launch_rows<WBITS, XBYTES, R::kLarge>(w, x, ws, xs, out, H, W, s);
+  return cudaErrorInvalidValue;
 }
 
 template <int XBYTES>
@@ -204,10 +209,10 @@ extern "C" {
 // y[h] = f32(sum_w W[h, w] * x[w] mod 2^32) * f32(ws[h] * xs[0]) for
 // h < H.  w: int8 (H, W) for w_bits 8, packed int4 (H, W/2) for w_bits 4;
 // x: int8 (x_bytes 1) or int16 (x_bytes 2), (W,); ws, out: float32 (H,);
-// xs: one float32.  rows 0: the byte-wise kernel (any alignment); 1, 2, 4
-// or 8: the vector kernel with that many rows per warp, which needs w and
-// x 16-byte aligned and the row bytes a multiple of 16.  Returns
-// cudaGetLastError() after the launch (0 on success), or
+// xs: one float32.  rows 0: the byte-wise kernel (any alignment); else the
+// vector kernel with that many rows per warp (one of the format's Rows),
+// which needs w and x 16-byte aligned and the row bytes a multiple of 16.
+// Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unsupported format or rows.
 int pim_gemv_int_launch(const void* w, const void* x, const float* ws,
                         const float* xs, float* out, int H, long long W,

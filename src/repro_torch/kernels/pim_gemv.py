@@ -7,10 +7,10 @@ step's flush.  On the card the fp GEMV gives each output row a warp that
 streams the weight row in 16-byte loads.  The int GEMV's vector kernel
 gives a warp R rows, whose lanes load and rearrange each activation
 chunk once for all R; :func:`gemv_int_variant` picks R by format and
-``H`` (``"rows1"`` ... ``"rows8"``), and operands that are not 16-byte
-aligned go ``"bytes"``, a byte at a time.  ``GEMV_INT_VARIANT_LAUNCHES``
-counts each variant's launches.  The kernels mask the ragged edge
-themselves; nothing is padded or copied.
+``H`` (``"rows1"``, ``"rows2"`` or ``"rows4"``), and operands that are
+not 16-byte aligned go ``"bytes"``, a byte at a time.
+``GEMV_INT_VARIANT_LAUNCHES`` counts each variant's launches.  The
+kernels mask the ragged edge themselves; nothing is padded or copied.
 
 Each kernel sits beside its plain torch version, which repeats its
 arithmetic (int sums exact mod 2**32, then ``acc * (w_scale * x_scale)``
@@ -18,6 +18,8 @@ in float32; fp operands upcast to float32 and summed in float32).  CPU
 tensors take the plain version; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,18 +29,19 @@ from .ref import int_matmul, unpack_w4
 LAUNCHES = {"pim_gemv_int": 0, "pim_gemv_fp": 0}
 
 # The int GEMV's launches by kernel variant (see gemv_int_variant).
-GEMV_INT_VARIANT_LAUNCHES = {"rows1": 0, "rows2": 0, "rows4": 0, "rows8": 0,
+GEMV_INT_VARIANT_LAUNCHES = {"rows1": 0, "rows2": 0, "rows4": 0,
                              "bytes": 0}
 # Weight rows per warp of the int GEMV's vector kernel, by (w_bits,
-# activation bytes): (R for small H, R for large H).  Large: H fills at
-# least GEMV_INT_ROWS_MIN_BLOCKS blocks of 8 warps x R rows (two per SM of
-# an H100's 132).  Timed at the granite-8b decode sites on an H100
-# (tools/gemv_int_sites.py --table; PERF.md): sharing each activation
-# load among R rows pays at W4A16 at every size, at W8A16 and int4 x int8
-# only where many rows keep the card full.
+# activation bytes): (R for small H, R for large H), the only ones the
+# kernel library builds (``Rows`` in csrc/pim_gemv.cu).  Large: H fills at
+# least two blocks of 8 warps x R rows per SM (gemv_int_large_h).  Timed
+# at the granite-8b decode sites on an H100 (PERF.md, the R table):
+# sharing each activation load among R rows pays at W4A16 at every size,
+# at W8A16 and int4 x int8 only where many rows keep the card full.
 GEMV_INT_ROWS = {(8, 1): (1, 1), (8, 2): (1, 4), (4, 1): (1, 4),
                  (4, 2): (2, 2)}
-GEMV_INT_ROWS_MIN_BLOCKS = 264
+# SMs of the card the CPU variant choice assumes: an H100 SXM's.
+H100_SMS = 132
 
 INT_X_DTYPES = {torch.int8: 1, torch.int16: 2}
 FP_X_DTYPES = {torch.float8_e4m3fn: 1, torch.bfloat16: 2}
@@ -122,6 +125,20 @@ def pim_gemv_int_plain(wq, x_q, w_scale, x_scale, *, w_bits: int = 8
     return int_matmul(w, x_q).float() * row_scale(w_scale, x_scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else H100_SMS)
+
+
+def gemv_int_large_h(w_bits: int, x_bytes: int,
+                     device: torch.device) -> int:
+    """The least H that takes the int GEMV's large-H R for this format
+    on ``device``: two blocks of 8 warps x R rows per SM of the card (of
+    an H100 for CPU operands)."""
+    return 2 * _sms(device) * 8 * GEMV_INT_ROWS[(w_bits, x_bytes)][1]
+
+
 def gemv_int_variant(wq: torch.Tensor, x_q: torch.Tensor,
                      w_bits: int) -> str:
     """The ``pim_gemv_int`` kernel these operands take on the card, by
@@ -131,38 +148,10 @@ def gemv_int_variant(wq: torch.Tensor, x_q: torch.Tensor,
     from :data:`GEMV_INT_ROWS`."""
     if not vector_ok(wq.shape[1], wq, x_q):
         return "bytes"
-    small, large = GEMV_INT_ROWS[(w_bits, INT_X_DTYPES[x_q.dtype])]
-    full = wq.shape[0] >= GEMV_INT_ROWS_MIN_BLOCKS * 8 * large
+    x_bytes = INT_X_DTYPES[x_q.dtype]
+    small, large = GEMV_INT_ROWS[(w_bits, x_bytes)]
+    full = wq.shape[0] >= gemv_int_large_h(w_bits, x_bytes, wq.device)
     return f"rows{large if full else small}"
-
-
-def gemv_int_launch(wq: torch.Tensor, x_q: torch.Tensor,
-                    w_scale: torch.Tensor, x_scale, *, w_bits: int,
-                    variant: str) -> torch.Tensor:
-    """Launch the int GEMV kernel ``variant`` (a key of
-    ``GEMV_INT_VARIANT_LAUNCHES``) on CUDA operands the wrapper checked:
-    f32 ``(H,)``.  :func:`pim_gemv_int` calls it with the variant of
-    :func:`gemv_int_variant`; timing tools call it with others.  Counts
-    the launch."""
-    from repro_torch.kernels import build
-
-    rows = 0 if variant == "bytes" else int(variant.removeprefix("rows"))
-    if rows and not vector_ok(wq.shape[1], wq, x_q):
-        raise ValueError(f"pim_gemv_int: the {variant!r} kernel needs "
-                         f"16-byte aligned operands and rows")
-    xs = scalar_scale(x_scale, wq.device)
-    h, w = wq.shape[0], weight_width(wq, w_bits)
-    out = torch.empty(h, dtype=torch.float32, device=wq.device)
-    if h == 0:
-        return out
-    with torch.cuda.device(wq.device):
-        build.launch("pim_gemv_int_launch", wq.data_ptr(), x_q.data_ptr(),
-                     w_scale.data_ptr(), xs.data_ptr(), out.data_ptr(), h, w,
-                     w_bits, INT_X_DTYPES[x_q.dtype], rows,
-                     torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["pim_gemv_int"] += 1
-    GEMV_INT_VARIANT_LAUNCHES[variant] += 1
-    return out
 
 
 def pim_gemv_int(wq: torch.Tensor, x_q: torch.Tensor,
@@ -179,8 +168,23 @@ def pim_gemv_int(wq: torch.Tensor, x_q: torch.Tensor,
     dev = _check_int(wq, x_q, w_scale, w_bits)
     if dev.type == "cpu":
         return pim_gemv_int_plain(wq, x_q, w_scale, x_scale, w_bits=w_bits)
-    return gemv_int_launch(wq, x_q, w_scale, x_scale, w_bits=w_bits,
-                           variant=gemv_int_variant(wq, x_q, w_bits))
+    from repro_torch.kernels import build
+
+    variant = gemv_int_variant(wq, x_q, w_bits)
+    xs = scalar_scale(x_scale, dev)
+    h, w = wq.shape[0], weight_width(wq, w_bits)
+    out = torch.empty(h, dtype=torch.float32, device=dev)
+    if h == 0:
+        return out
+    with torch.cuda.device(dev):
+        build.launch("pim_gemv_int_launch", wq.data_ptr(), x_q.data_ptr(),
+                     w_scale.data_ptr(), xs.data_ptr(), out.data_ptr(), h, w,
+                     w_bits, INT_X_DTYPES[x_q.dtype],
+                     0 if variant == "bytes" else int(variant[4:]),
+                     torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["pim_gemv_int"] += 1
+    GEMV_INT_VARIANT_LAUNCHES[variant] += 1
+    return out
 
 
 def _check_fp(w_fp8, x) -> torch.device:

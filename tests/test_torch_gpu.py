@@ -495,33 +495,26 @@ def test_gemm_int_tensor_core_edges(dev, fmt, w):
         variants, bytes=variants["bytes"] + 1)
 
 
-def gemv_int_expect(wq, x, fmt, variant, dev, via_wrapper=True):
-    """One int GEMV launch held bit for bit to plain, on ``variant``
-    (counted once there): through ``pim_gemv_int``, which must choose
-    it, or through ``gemv_int_launch``, told to take it."""
+def gemv_int_expect(wq, x, fmt, variant, dev):
+    """One int GEMV launch through ``pim_gemv_int``, which must choose
+    ``variant`` (counted once there), held bit for bit to plain."""
     w_bits = INT_FORMATS[fmt][0]
     h = wq.shape[0]
     ws = torch.linspace(0.5, 2.0, h, device=dev)
     before = dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES)
-    if via_wrapper:
-        assert pim_gemv.gemv_int_variant(wq, x, w_bits) == variant
-        out = held_to_plain("pim_gemv_int", wq, x, ws, 0.37, w_bits=w_bits)
-    else:
-        out = pim_gemv.gemv_int_launch(wq, x, ws, 0.37, w_bits=w_bits,
-                                       variant=variant)
-        want = pim_gemv.pim_gemv_int_plain(wq, x, ws, 0.37, w_bits=w_bits)
-        torch.cuda.synchronize()
-        assert torch.equal(out, want), (fmt, variant, h)
+    assert pim_gemv.gemv_int_variant(wq, x, w_bits) == variant
+    out = held_to_plain("pim_gemv_int", wq, x, ws, 0.37, w_bits=w_bits)
     assert pim_gemv.GEMV_INT_VARIANT_LAUNCHES == dict(
         before, **{variant: before[variant] + 1})
     assert out.shape == (h,)
 
 
-def gemv_rows(fmt: str) -> tuple[int, int, int]:
+def gemv_rows(fmt: str, dev) -> tuple[int, int, int]:
     """R for small and large H, and the least H that takes the large."""
     w_bits, x_dtype = INT_FORMATS[fmt]
     small, large = pim_gemv.GEMV_INT_ROWS[(w_bits, x_dtype.itemsize)]
-    return small, large, pim_gemv.GEMV_INT_ROWS_MIN_BLOCKS * 8 * large
+    return small, large, pim_gemv.gemv_int_large_h(w_bits,
+                                                   x_dtype.itemsize, dev)
 
 
 @pytest.mark.parametrize("w", [32, 64, 4096, 4128, 14336])
@@ -532,7 +525,7 @@ def test_gemv_int_vector_edges(dev, fmt, w):
     1025, all on the small-H R -- and widths up to mlp.wo's 14336, with
     the weight extremes and the byte planes' extremes; a misaligned view
     goes byte-wise."""
-    small = gemv_rows(fmt)[0]
+    small = gemv_rows(fmt, dev)[0]
     gen = torch.Generator().manual_seed(w + INT_FORMATS[fmt][0])
     for h in sorted({1, max(1, small - 1), small + 1, 15, 17, 1024, 1025}):
         wq, xb = int_gemm_operands(gen, 1, h, w, fmt, dev)
@@ -547,7 +540,7 @@ def test_gemv_int_vector_edges(dev, fmt, w):
 def test_gemv_int_large_h_edges(dev, fmt):
     """Around the least H that takes the large-H R: one row short of it,
     at it, and a ragged last row group past it."""
-    small, large, least = gemv_rows(fmt)
+    small, large, least = gemv_rows(fmt, dev)
     gen = torch.Generator().manual_seed(INT_FORMATS[fmt][0] + 5)
     for h, rows in ((least - 1, small), (least, large),
                     (least + large + 1, large)):
@@ -558,16 +551,16 @@ def test_gemv_int_large_h_edges(dev, fmt):
 
 @pytest.mark.parametrize("fmt", INT_FORMATS)
 def test_gemv_int_every_variant(dev, fmt):
-    """Every vector instantiation (1, 2, 4, 8 rows per warp) bit for bit
-    against plain on ragged shapes: rows past a block's 8 R, widths
-    ending inside a pass of 32 x U chunks."""
+    """Both vector variants the wrapper gives a format (its small-H and
+    large-H R) bit for bit against plain on ragged shapes: rows past a
+    block's 8 R, widths ending inside a pass of 32 x 4 chunks."""
+    small, large, least = gemv_rows(fmt, dev)
     gen = torch.Generator().manual_seed(11)
-    for h, w in ((37, 4128), (9, 64), (1030, 32), (67, 14336)):
+    for h, w in ((37, 4128), (9, 64), (1030, 32), (67, 14336),
+                 (least + 37, 4128), (least + 9, 64), (least + 67, 14336)):
         wq, xb = int_gemm_operands(gen, 1, h, w, fmt, dev)
-        for variant in pim_gemv.GEMV_INT_VARIANT_LAUNCHES:
-            if variant != "bytes":
-                gemv_int_expect(wq, xb[0], fmt, variant, dev,
-                                via_wrapper=False)
+        gemv_int_expect(wq, xb[0], fmt,
+                        f"rows{large if h >= least else small}", dev)
 
 
 def test_gemv_int_w4a16_wraparound_on_card(dev):

@@ -431,7 +431,7 @@ def test_int_gemm_variant_is_chosen_by_shape_and_alignment(w_bits, w,
 def test_gemv_int_variant_is_chosen_by_shape_and_alignment(w_bits, x_dtype,
                                                            h, w, skew, want):
     """The int GEMV's kernel on the card: R rows per warp by format, the
-    larger R where H fills GEMV_INT_ROWS_MIN_BLOCKS blocks of 8 x R;
+    larger R where H fills two blocks of 8 x R per SM (an H100's 132);
     "bytes" for misaligned operands or rows that are not a multiple of
     16 bytes.  On CPU tensors the wrapper runs the plain version and
     counts nothing."""
