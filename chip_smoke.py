@@ -52,6 +52,18 @@ Phases (any failure exits nonzero before the last line):
    beside its bound, its plain version and, where one exists, one
    PyTorch call of the same function; and the int GEMM at W8A8, batch 16
    (two N tiles), beside ``_int_mm``.
+8. Serving without a model, with the lane LRU cold and the lane-scan
+   launch count at 0, on one full-width granite-8b ``OffloadPlanner``:
+   the serving goldens (``serve_trace``, ``disagg_trace``,
+   ``spec_decode_trace``) re-derived exactly — scheduling by the
+   model-free mirrors, ``controller`` report and ``per_step`` records by
+   ``run_policy_over_trace``; every scenario x policy with the policy
+   battery's assertions; ``plan_draft`` / ``touch_draft`` /
+   ``spec_decode_speedup``; then every registry arch planned at full
+   width (the LRU cleared between archs), and the port's ``RefEngine``
+   on every lane of those plans up to 100,000 commands, whose issue
+   arrays and totals must equal the kernel's.  Each part prints its wall
+   beside the card's name and power limit.
 
 Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
 flushed before every launch, one pair of CUDA events per launch, the
@@ -60,7 +72,8 @@ median, min and max over many launches (100 for the PIM-tile kernels,
 library call timed in turns.
 
 The second-to-last line is the ``kernels`` JSON record (all five
-kernels); the last is ``{"ok": true, "device": {...}}``.
+kernels; the lane scan's launches are phase 4's and phase 8's); the last
+is ``{"ok": true, "device": {...}}``.
 """
 import hashlib
 import json
@@ -697,6 +710,187 @@ def library_call(dtype: str, w_op: torch.Tensor, x_op: torch.Tensor):
     return None
 
 
+ORACLE_MAX_COMMANDS = 100_000      # lanes up to this long go to RefEngine
+
+
+def serving_without_a_model(dev, card: str) -> dict:
+    """Phase 8: the offload policies and scenario mirrors over the port's
+    planner at full width, through the lane-scan kernel.  Every part's
+    wall ends in ``torch.cuda.synchronize()``; the lane-scan launch count
+    is set to 0 before the parts and read after the last of them (the
+    oracle's comparison launches come after and are not counted)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import engine
+    from repro_torch.core.engine_ref import RefEngine
+    from repro_torch.kernels import lane_scan
+    from repro_torch.serving import scenarios as scen
+    from repro_torch.serving.offload import OffloadPlanner
+
+    def roundtrip(x):
+        return json.loads(json.dumps(x))
+
+    # Every launch's lanes and commands; during the ten-arch part, the
+    # lanes up to ORACLE_MAX_COMMANDS long with the totals the kernel gave.
+    real_scan, real_pack = lane_scan.lane_scan, engine.pack_lanes
+    packed: list = []
+    stats = {"lanes": 0, "commands": 0}
+    short: list = []
+    keep_short = [False]
+
+    def counting_pack(lanes):
+        packed[:] = lanes
+        return real_pack(lanes)
+
+    def counting_scan(cycs, streams, lengths, nb, **kw):
+        iss, tot = real_scan(cycs, streams, lengths, nb, **kw)
+        stats["lanes"] += int(streams.shape[0])
+        stats["commands"] += int(lengths.sum())
+        if keep_short[0]:
+            tot_host = tot.cpu().numpy()
+            for row, (cyc, s) in enumerate(packed):
+                if s.shape[0] <= ORACLE_MAX_COMMANDS:
+                    short.append((cyc, s, int(tot_host[row])))
+        return iss, tot
+
+    lane_scan.lane_scan, engine.pack_lanes = counting_scan, counting_pack
+    engine.lane_cache_reset()
+    lane_scan.LAUNCHES = 0
+    walls, part_launches = {}, {}
+
+    def close(part: str, t0: float, launches0: int) -> None:
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t0
+        part_launches[part] = lane_scan.LAUNCHES - launches0
+        print(f"[8] {part}: {walls[part]!r} s wall, {part_launches[part]} "
+              f"lane-scan launches ({card})")
+
+    # -- the three serving goldens at full granite-8b width ---------------
+    t0, n0 = time.perf_counter(), lane_scan.LAUNCHES
+    planner = OffloadPlanner(ARCHS["granite-8b"], device=dev)
+    for name in ("serve_trace", "disagg_trace", "spec_decode_trace"):
+        fixture = json.loads((ROOT / "tests/golden" / f"{name}.json")
+                             .read_text())
+        if name == "disagg_trace":
+            rec = fixture["disagg"]
+            slo = {int(r): c for r, c in rec["slo"].items()}
+            sim = scen.simulate_disagg(
+                scen.ScenarioSpec.from_record(fixture["scenario"]),
+                scen.DisaggConfig.from_record(rec["config"]), slo)
+            check(sim["per_tick_batch"] == fixture["per_tick_batch"],
+                  f"{name}: per_tick_batch not reproduced")
+            for key in ("prefill_ticks", "admit_ticks", "completion_ticks"):
+                check(rec["requests"][key]
+                      == {str(r): t for r, t in sim[key].items()},
+                      f"{name}: disagg {key} not reproduced")
+            check(rec["handoff"]["max_depth"] == sim["max_handoff_depth"],
+                  f"{name}: handoff depth not reproduced")
+        else:
+            check(scen.replay_batches(fixture) == fixture["per_tick_batch"],
+                  f"{name}: per_tick_batch not reproduced")
+        c = scen.run_policy_over_trace(planner, fixture["policy"],
+                                       fixture["per_tick_batch"],
+                                       fence=fixture["fence"])
+        check(roundtrip(c.report()) == fixture["controller"],
+              f"{name}: controller report not reproduced")
+        check(roundtrip([r.to_record() for r in c.trace])
+              == fixture["per_step"], f"{name}: per_step not reproduced")
+    close("goldens", t0, n0)
+    check(part_launches["goldens"] > 0, "the goldens launched no lane scan")
+
+    # -- the policy battery: every scenario x policy -----------------------
+    t0, n0 = time.perf_counter(), lane_scan.LAUNCHES
+    battery = {}
+    for name in sorted(scen.SCENARIOS):
+        trace = scen.occupancy_trace(scen.make_scenario(name, seed=0))
+        for pol in ("per-step", "hysteresis", "sticky"):
+            rep = scen.run_policy_over_trace(planner, pol, trace).report()
+            check(rep["steps"] == len(trace), f"{name}/{pol}: steps")
+            if pol == "per-step":
+                check(rep["efficiency"] == 1.0
+                      and rep["planner_queries"] == rep["steps"],
+                      f"{name}/{pol}: not the oracle: {rep}")
+            else:
+                check(rep["efficiency"] >= 0.95
+                      and rep["realized_speedup"]
+                      <= rep["oracle_speedup"] + 1e-12
+                      and rep["planner_queries"] < rep["steps"],
+                      f"{name}/{pol}: battery assertion failed: {rep}")
+            battery[f"{name}/{pol}"] = {k: rep[k] for k in (
+                "steps", "planner_queries", "replans", "switches",
+                "efficiency", "realized_speedup")}
+    close("battery", t0, n0)
+    print(f"[8] battery: {json.dumps(battery)}")
+
+    # -- speculative planning ---------------------------------------------
+    t0, n0 = time.perf_counter(), lane_scan.LAUNCHES
+    draft = planner.plan_draft()
+    touched = planner.touch_draft()
+    tel = planner.spec_decode_speedup(batch=1)
+    close("speculative", t0, n0)
+    check(part_launches["speculative"] > 0,
+          "draft planning launched no lane scan")
+    check(len(draft) == len(planner.plan()) and touched > 0
+          and all(d.pim_ns > 0 and d.host_ns > 0 for d in draft)
+          and np.isfinite(tel["speedup"]) and tel["speedup"] > 0,
+          f"speculative planning: {touched} lanes touched, {tel}")
+    print(f"[8] speculative: {touched} draft lanes touched; "
+          f"{json.dumps(tel)}")
+
+    # -- every arch at full width through the kernel ----------------------
+    t0, n0 = time.perf_counter(), lane_scan.LAUNCHES
+    archs = {}
+    keep_short[0] = True
+    for name, cfg in ARCHS.items():
+        engine.lane_cache_clear()
+        ta, na = time.perf_counter(), lane_scan.LAUNCHES
+        s0 = dict(stats)
+        plan = OffloadPlanner(cfg, device=dev).plan(fence=True)
+        torch.cuda.synchronize()
+        archs[name] = dict(
+            wall_s=time.perf_counter() - ta,
+            launches=lane_scan.LAUNCHES - na,
+            lanes=stats["lanes"] - s0["lanes"],
+            commands=stats["commands"] - s0["commands"], sites=len(plan),
+            offloaded_at_b1=sum(d.offload_at(1) for d in plan))
+        check(archs[name]["launches"] > 0
+              and all(d.pim_ns > 0 and d.host_ns > 0 for d in plan),
+              f"{name}: plan {archs[name]}")
+        print(f"[8] {name}: {json.dumps(archs[name])} ({card})")
+    keep_short[0] = False
+    close("archs", t0, n0)
+    launches = lane_scan.LAUNCHES
+    lane_scan.lane_scan, engine.pack_lanes = real_scan, real_pack
+
+    # -- the oracle: RefEngine on every lane up to ORACLE_MAX_COMMANDS ----
+    t0 = time.perf_counter()
+    by_banks: dict = {}
+    for cyc, s, total in short:
+        by_banks.setdefault(cyc.num_banks, []).append((cyc, s, total))
+    for nb, lanes in sorted(by_banks.items()):
+        cycs, streams, lengths = engine.pack_lanes(
+            [(c, s) for c, s, _t in lanes])
+        iss, tot = real_scan(cycs.to(dev), streams.to(dev),
+                             lengths.to(dev), nb)
+        iss, tot = iss.cpu().numpy(), tot.cpu().numpy()
+        for row, (cyc, s, total) in enumerate(lanes):
+            iss_ref, tot_ref = RefEngine(cyc, validate=False).run(s)
+            check(np.array_equal(iss[row, : s.shape[0]].astype(np.int64),
+                                 iss_ref)
+                  and int(tot[row]) == tot_ref == total,
+                  f"RefEngine != kernel on a {s.shape[0]}-command lane")
+    torch.cuda.synchronize()
+    walls["oracle"] = time.perf_counter() - t0
+    oracle = dict(lanes=len(short),
+                  commands=sum(s.shape[0] for _c, s, _t in short))
+    check(oracle["lanes"] > 0, "no lane for the oracle")
+    print(f"[8] oracle: RefEngine == kernel on {oracle['lanes']} lanes, "
+          f"{oracle['commands']} commands, {walls['oracle']!r} s wall "
+          f"({card})")
+    return dict(launches=launches, walls=walls, part_launches=part_launches,
+                archs=archs, oracle=oracle,
+                phase_wall_s=sum(walls.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1088,12 +1282,16 @@ def main() -> int:
                 "mma_at_batch_1": linear["mma_at_batch_1"]}
                if name == "pim_gemv_int" else {})})
 
+    # ---- 8. serving without a model ---------------------------------------
+    serving = serving_without_a_model(dev, card)
+
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{
         "name": "lane_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lane_scan.cu",
         "replaces": "src/repro/kernels/lane_scan.py:49",
-        "launches": total_launches, "max_abs_err": worst,
+        "launches": total_launches + serving["launches"],
+        "max_abs_err": worst,
         "ms": main_fleet["ms"], "plain_ms": plain_ms,
         "bound_ms": main_fleet["bound_ms"],
         "bound_by": main_fleet["bound_by"], "library_ms": None,
@@ -1103,7 +1301,10 @@ def main() -> int:
         "kernel_ms_on_plain_inputs": short_kernel_ms,
         "fleets": fleets, "ptxas": lane_ptxas,
         "part_seconds": {p: dict(wall=walls[p], **split[p])
-                         for p in walls}}, *pim_entries]}
+                         for p in walls},
+        "launches_by_phase": {"4": total_launches,
+                              "8": serving["launches"]},
+        "serving": serving}, *pim_entries]}
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

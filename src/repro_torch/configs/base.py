@@ -1,7 +1,9 @@
-"""Architecture configuration dataclasses.
+"""Architecture / run configuration dataclasses.
 
 Every supported architecture is an :class:`ArchConfig` in its own module
-(``configs/<id>.py``); the offload planner reads its GEMV shapes.
+(``configs/<id>.py``); the offload planner reads its GEMV shapes.  The
+input shapes are :class:`ShapeConfig` entries; which shapes an arch
+supports (decode vs train, sub-quadratic requirements) is derived here.
 """
 from __future__ import annotations
 
@@ -109,6 +111,35 @@ class ArchConfig:
         e, k = self.moe.n_experts, self.moe.top_k
         expert_params = L * e * 3 * d * self.d_ff
         return total - expert_params + expert_params * k // e
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str              # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shapes_for(cfg: ArchConfig) -> list[str]:
+    """The shapes an arch runs: all but ``long_500k``, which needs a
+    sub-quadratic arch."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        out.append("long_500k")
+    return out
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

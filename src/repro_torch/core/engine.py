@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import commands as C
+from . import faults
 from .timing import TimingCycles
 from repro_torch.kernels import lane_scan
 
@@ -86,7 +87,8 @@ class FleetResult:
 # keys the repeat costs a dict lookup instead of an engine dispatch.  Totals
 # are always cached; issue arrays only up to ``_LANE_ISSUE_BYTES``.
 # Entries carry an integrity tag checked on every hit: a corrupted entry
-# is evicted, counted as a miss, and the lane resolves cold.
+# is evicted, counted as a miss, recorded as a ``lane_cache`` ``detect``
+# event, and the lane resolves cold.
 # ---------------------------------------------------------------------------
 
 _LANE_CACHE: "OrderedDict[tuple, tuple[int, np.ndarray | None, int]]" = \
@@ -167,8 +169,12 @@ def _lane_cache_get(key, need_issue: bool):
             return None
         total, issue, tag = ent
         if tag != _lane_tag(total, issue):
-            del _LANE_CACHE[key]            # corrupted: evict, resolve cold
+            # Poisoned entry: evict and fall back cold — never serve a
+            # stale lane.  Counted as a miss (the caller re-resolves).
+            del _LANE_CACHE[key]
             _LANE_STATS["misses"] += 1
+            faults.record_event("lane_cache", "detect",
+                                "poisoned entry evicted (tag mismatch)")
             return None
         _LANE_CACHE.move_to_end(key)
         _LANE_STATS["hits"] += 1
@@ -189,6 +195,39 @@ def _lane_cache_put(key, total: int, issue: np.ndarray | None) -> None:
         while len(_LANE_CACHE) > _LANE_CACHE_MAX:
             _LANE_CACHE.popitem(last=False)
             _LANE_STATS["evictions"] += 1
+
+
+def lane_cache_poison(n: int = 1, seed: int = 0) -> int:
+    """Chaos hook: corrupt the totals of up to ``n`` cached entries in
+    place (stale tags, so the integrity check catches them on the next
+    hit or :func:`lane_cache_verify` sweep).  Returns entries poisoned.
+    """
+    rng = np.random.default_rng(seed)
+    with _LANE_CACHE_LOCK:
+        keys = list(_LANE_CACHE)
+        if not keys:
+            return 0
+        picks = rng.choice(len(keys), size=min(int(n), len(keys)),
+                           replace=False)
+        for i in picks:
+            total, issue, tag = _LANE_CACHE[keys[i]]
+            _LANE_CACHE[keys[i]] = (total + 1 + int(rng.integers(1000)),
+                                    issue, tag)
+        return len(picks)
+
+
+def lane_cache_verify() -> int:
+    """Integrity sweep: evict every poisoned entry (tag mismatch),
+    recording one ``detect`` event each; returns the eviction count."""
+    with _LANE_CACHE_LOCK:
+        bad = [k for k, (total, issue, tag) in _LANE_CACHE.items()
+               if tag != _lane_tag(total, issue)]
+        for k in bad:
+            del _LANE_CACHE[k]
+    for _ in bad:
+        faults.record_event("lane_cache", "detect",
+                            "poisoned entry evicted (scrub)")
+    return len(bad)
 
 
 def _length_bucket(n: int) -> int:

@@ -22,7 +22,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core import engine
 from repro_torch.core.timing import DEFAULT_SYSTEM, SystemSpec
 from repro_torch.pimkernel.executor import (FunctionalGemv, GemvRequest,
                                       PimExecutor, PimResult)
@@ -136,3 +138,18 @@ class PimSimulator:
             surfaces[si] = out
         return surfaces[0] if single else surfaces
 
+
+
+_DEFAULT_SIMULATORS: dict = {}
+
+
+def default_simulator(device=None) -> PimSimulator:
+    """The process's shared simulator on ``device`` (the card unless
+    ``device="cpu"``), one per resolved device."""
+    dev = engine.resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    sim = _DEFAULT_SIMULATORS.get(dev)
+    if sim is None:
+        sim = _DEFAULT_SIMULATORS[dev] = PimSimulator(device=dev)
+    return sim

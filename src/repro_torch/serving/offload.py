@@ -68,6 +68,25 @@ def decode_gemv_sites(cfg: ArchConfig) -> list[GemvSite]:
     return sites
 
 
+def draft_gemv_sites(cfg: ArchConfig, shrink: int = 4) -> list[GemvSite]:
+    """GEMV sites of the speculative *draft* model: the target's sites
+    with both dimensions shrunk by ``shrink`` (floored at 16).
+
+    Speculative decoding drafts with a model roughly ``shrink²`` times
+    smaller; those small GEMVs are exactly the regime LPDDR-PIM wins
+    hardest (LP-Spec's observation), so the draft pass routes through
+    the PIM-friendly small-shape path — and its resolved lanes are the
+    hot entries :meth:`OffloadPlanner.touch_draft` pins in the lane LRU.
+    Deriving from the target's own sites gives every architecture
+    family a consistent draft proxy without a second model config.
+    """
+    if shrink < 1:
+        raise ValueError("shrink must be >= 1")
+    return [GemvSite("draft." + s.name, max(16, s.h // shrink),
+                     max(16, s.w // shrink), s.count)
+            for s in decode_gemv_sites(cfg)]
+
+
 @dataclasses.dataclass
 class OffloadDecision:
     site: GemvSite
@@ -125,6 +144,8 @@ class OffloadPlanner:
         self.sim = sim or PimSimulator(device=device)
         self.dtype = dtype
         self._plans: dict[tuple, list[OffloadDecision]] = {}
+        self._draft_plans: dict[tuple, list[OffloadDecision]] = {}
+        self._draft_reqs: dict[tuple, list[GemvRequest]] = {}
 
     def plan_grid(self, specs: Sequence[SystemSpec],
                   fence: bool = True) -> list[list[OffloadDecision]]:
@@ -166,6 +187,87 @@ class OffloadPlanner:
         """Offload decision per GEMV site (one spec of the grid path)."""
         return self.plan_grid([spec or self.sim.spec], fence=fence)[0]
 
+    def plan_draft(self, fence: bool = True,
+                   spec: SystemSpec | None = None,
+                   shrink: int = 4) -> list[OffloadDecision]:
+        """Offload decisions for the speculative draft model's sites.
+
+        Same batched grid path as :meth:`plan` but over
+        :func:`draft_gemv_sites` — one fleet dispatch warms every draft
+        lane through the engine's resolved-lane LRU, and the planned
+        requests are kept so :meth:`touch_draft` can re-pin those lanes
+        without re-resolving anything.
+        """
+        sp = spec or self.sim.spec
+        key = (sp, fence, shrink)
+        if key not in self._draft_plans:
+            sites = draft_gemv_sites(self.cfg, shrink=shrink)
+            reshapes = [site.h < 2048 for site in sites]
+            reqs = []
+            for site, reshape in zip(sites, reshapes):
+                reqs.append(GemvRequest.pim(site.h, site.w, self.dtype,
+                                            fence=fence, reshape=reshape,
+                                            spec=sp))
+                reqs.append(GemvRequest.baseline(site.h, site.w,
+                                                 self.dtype, spec=sp))
+            res = iter(self.sim.run_many(reqs))
+            out = []
+            for site, reshape in zip(sites, reshapes):
+                pim, base = next(res), next(res)
+                crossover = max(1, int(base.ns / pim.ns))
+                out.append(OffloadDecision(site=site, pim_ns=pim.ns,
+                                           host_ns=base.ns,
+                                           reshape=reshape,
+                                           offload_below_batch=crossover))
+            self._draft_plans[key] = out
+            self._draft_reqs[key] = reqs
+        return self._draft_plans[key]
+
+    def touch_draft(self, fence: bool = True,
+                    spec: SystemSpec | None = None,
+                    shrink: int = 4) -> int:
+        """Pin the draft model's resolved lanes at the MRU end of the
+        lane LRU (``engine.lane_cache_touch`` via the executor) so
+        eviction pressure from big heterogeneous grids or replan storms
+        cannot push the hot small-shape draft lanes out mid-serve.
+        Plans the draft first if needed; returns lanes touched (0 when
+        the cache ran cold — the next resolve re-warms them)."""
+        sp = spec or self.sim.spec
+        self.plan_draft(fence=fence, spec=sp, shrink=shrink)
+        return self.sim.executor.touch_many(
+            self._draft_reqs[(sp, fence, shrink)])
+
+    def spec_decode_speedup(self, batch: int = 1, draft_len: int = 4,
+                            acceptance: float = 0.7, fence: bool = True,
+                            spec: SystemSpec | None = None,
+                            shrink: int = 4) -> dict:
+        """Expected per-generated-token economics of the draft/verify
+        loop vs vanilla decode, pure arithmetic over the cached plans.
+
+        One round drafts ``draft_len`` tokens on the draft model and
+        verifies with one batched target pass; with leading-prefix
+        acceptance it yields ``1 + Σ_{j≤L} p^j`` tokens in expectation.
+        Both phases run under their own oracle offload sets at this
+        batch, so the verdict is "speculation on the best hybrid vs
+        vanilla on the best hybrid" — the honest comparison.
+        """
+        target = self.plan(fence=fence, spec=spec)
+        draft = self.plan_draft(fence=fence, spec=spec, shrink=shrink)
+        _, vanilla_ns = step_cost(target, batch,
+                                  offload_set(target, batch))
+        _, draft_ns = step_cost(draft, batch, offload_set(draft, batch))
+        tokens = 1.0 + sum(acceptance ** j
+                           for j in range(1, draft_len + 1))
+        round_ns = draft_len * draft_ns + vanilla_ns
+        per_token = round_ns / tokens
+        return dict(batch=batch, draft_len=draft_len,
+                    acceptance=acceptance,
+                    tokens_per_round=tokens,
+                    draft_step_ns=draft_ns, verify_step_ns=vanilla_ns,
+                    ns_per_token=per_token,
+                    vanilla_ns_per_token=vanilla_ns,
+                    speedup=vanilla_ns / max(per_token, 1e-9))
+
     def frontier(self, fence: bool = True,
                  spec: SystemSpec | None = None) -> dict:
         """Per-site offload frontier of one spec: site name → the batch
@@ -182,6 +284,8 @@ class OffloadPlanner:
         not fleet work — the property sticky-policy refreshes rely on.
         """
         self._plans.clear()
+        self._draft_plans.clear()
+        self._draft_reqs.clear()
         self.sim.clear_cache()
 
     def decode_speedup(self, batch: int = 1, fence: bool = True,
@@ -198,3 +302,37 @@ class OffloadPlanner:
                     offloaded=[d.site.name for d in decisions
                                if d.site.name in off],
                     n_sites=len(decisions))
+
+    def occupancy_weighted_speedup(self, occupancy: dict[int, int],
+                                   fence: bool = True,
+                                   spec: SystemSpec | None = None) -> dict:
+        """Decode-phase speedup under a batch-occupancy histogram.
+
+        ``occupancy`` maps decode batch size -> number of steps observed
+        at that size (``ServingEngine.batch_occupancy``).  Each step's
+        offload decision is taken at its *own* batch size — crossover per
+        step, not per run — and the host/mixed step times are weighted by
+        the histogram.  After the first ``plan`` (one batched, lane-
+        cache-accelerated fleet query) this is pure arithmetic over the
+        cached decisions, so it is cheap enough to recompute every run.
+
+        An empty histogram means "no decode steps observed": the neutral
+        answer is speedup 1.0 over zero steps, not the 0/eps collapse a
+        missing-trace caller would otherwise read as "PIM is infinitely
+        bad".
+        """
+        if not occupancy:
+            return dict(steps=0, host_ns=0.0, mixed_ns=0.0, speedup=1.0,
+                        per_batch_speedup={})
+        host_total = mixed_total = 0.0
+        per_batch = {}
+        steps = 0
+        for b, count in sorted(occupancy.items()):
+            tel = self.decode_speedup(batch=b, fence=fence, spec=spec)
+            per_batch[b] = tel["speedup"]
+            host_total += tel["host_ns"] * count
+            mixed_total += tel["mixed_ns"] * count
+            steps += count
+        return dict(steps=steps, host_ns=host_total, mixed_ns=mixed_total,
+                    speedup=host_total / max(mixed_total, 1e-9),
+                    per_batch_speedup=per_batch)

@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import granite_8b
+from repro_torch.configs import ARCHS, granite_8b
+from repro_torch.core import commands as C
 from repro_torch.core import engine
+from repro_torch.core.engine_ref import RefEngine
 from repro_torch.core.pimsim import PimSimulator
 from repro_torch.core.timing import (DEFAULT_SYSTEM, LpddrTimings, PimSpec,
                                      SystemSpec)
@@ -28,6 +30,7 @@ from repro_torch.pimkernel.executor import (FunctionalGemv, GemvRequest,
                                             PimExecutor)
 from repro_torch.pimkernel.tileconfig import ALL_DTYPES, PimDType
 from repro_torch.serving.offload import OffloadPlanner
+from repro_torch.serving.scenarios import run_policy_over_trace
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -235,6 +238,76 @@ def test_main_path_goes_through_the_kernel(dev):
     planner.invalidate()
     planner.plan()
     assert lane_scan.LAUNCHES == warm
+
+
+def every_opcode_stream(rng, nb: int) -> np.ndarray:
+    """A valid stream that issues all 17 opcodes, in seeded amounts."""
+    b = C.StreamBuilder()
+    for _ in range(3):
+        bank, row = int(rng.integers(0, nb)), int(rng.integers(0, 64))
+        b.emit(C.NOP)
+        b.emit(C.ACT, bank, row)
+        b.emit_repeat(C.RD, int(rng.integers(1, 5)), a=bank, b=row)
+        b.emit_repeat(C.WR, int(rng.integers(1, 3)), a=bank, b=row)
+        b.emit(C.PRE, bank)
+        b.emit(C.PREA)
+        b.emit(C.REFAB)
+        b.emit(C.MODE_MB)
+        b.emit(C.WR_IRF)
+        for q in range(4):
+            b.emit(C.ACT_MB, q, int(rng.integers(0, 64)))
+        b.emit_repeat(C.WR_SRF, int(rng.integers(1, 4)), a=0, b=0)
+        b.emit_repeat(C.MAC, int(rng.integers(1, 6)), c_start=0)
+        b.emit(C.FENCE)
+        b.emit(C.MOV_ACC)
+        b.emit_repeat(C.RD_ACC, int(rng.integers(1, 3)),
+                      a=int(rng.integers(0, nb)))
+        b.emit(C.PRE_MB)
+        b.emit(C.MODE_SB)
+    return b.build()
+
+
+@pytest.mark.parametrize("bankgroups", [2, 3, 4])
+def test_ref_engine_matches_kernel_on_every_opcode(dev, bankgroups):
+    """The port's oracle (``RefEngine``, numpy) against the kernel: issue
+    arrays and totals of short valid streams of every opcode, and of a
+    fenced PIM GEMV's channels."""
+    spec = SystemSpec(timings=LpddrTimings(num_bankgroups=bankgroups))
+    cyc = spec.derive_cycles()
+    rng = np.random.default_rng(bankgroups)
+    streams = [every_opcode_stream(rng, cyc.num_banks) for _ in range(6)]
+    assert set(np.concatenate([s[:, 0] for s in streams])) \
+        == set(range(C.NUM_OPCODES))
+    if bankgroups == 4:
+        streams += list(PimExecutor(device=dev).plan_many(
+            [GemvRequest.pim(256, 2048, PimDType.W8A16, fence=True)])[0]
+            .streams)
+    cycs, packed, lengths = engine.pack_lanes([(cyc, s) for s in streams])
+    iss, tot = lane_scan.lane_scan(cycs.to(dev), packed.to(dev),
+                                   lengths.to(dev), cyc.num_banks)
+    iss, tot = iss.cpu().numpy(), tot.cpu().numpy()
+    for row, s in enumerate(streams):
+        iss_ref, tot_ref = RefEngine(cyc).run(s)
+        np.testing.assert_array_equal(iss[row, : len(s)].astype(np.int64),
+                                      iss_ref)
+        assert int(tot[row]) == tot_ref
+
+
+@pytest.mark.parametrize("name", ["serve_trace", "disagg_trace",
+                                  "spec_decode_trace"])
+def test_serving_golden_controller_at_full_width(dev, name):
+    """The goldens' controller report and per-step records, re-derived
+    by the port's planner at full granite-8b width through the kernel."""
+    fixture = json.loads((GOLDEN / f"{name}.json").read_text())
+    planner = OffloadPlanner(ARCHS["granite-8b"], device=dev)
+    before = lane_scan.LAUNCHES
+    c = run_policy_over_trace(planner, fixture["policy"],
+                              fixture["per_tick_batch"],
+                              fence=fixture["fence"])
+    assert lane_scan.LAUNCHES > before
+    assert json.loads(json.dumps(c.report())) == fixture["controller"]
+    assert (json.loads(json.dumps([r.to_record() for r in c.trace]))
+            == fixture["per_step"])
 
 
 # ---------------------------------------------------------------------
