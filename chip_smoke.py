@@ -64,6 +64,21 @@ Phases (any failure exits nonzero before the last line):
    on every lane of those plans up to 100,000 commands, whose issue
    arrays and totals must equal the kernel's.  Each part prints its wall
    beside the card's name and power limit.
+9. Serving with a model (float32; TF32 must be off), each part's wall
+   beside the card's name and power limit:
+   ``model_logits``, granite-8b at its published widths cut to 2 layers,
+   weights redrawn with numpy from the fixture's seed, must reproduce
+   ``tests/golden/torch_model_logits.json`` (the JAX package's prefill +
+   4 ragged greedy decode steps) within 1e-4 x max|logit| with equal
+   greedy tokens; ``serve_full``, the 36-layer granite-8b (33 GB of f32
+   weights drawn on the card) with a cold full-width planner, must
+   replay ``serve_trace.json`` and ``spec_decode_trace.json`` exactly
+   (lane-scan launches counted from 0), serve three requests together as
+   each alone, and agree with ``forward``; then prefill and decode-step
+   times beside the decode step's bytes bound; ``launcher_warm``, the
+   serve launcher in fresh processes, cold then warm from one cache
+   directory (zero misses warm) and once in its monolithic mode;
+   ``archs_smoke``, every arch's smoke config on the card == on the CPU.
 
 Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
 flushed before every launch, one pair of CUDA events per launch, the
@@ -72,11 +87,13 @@ median, min and max over many launches (100 for the PIM-tile kernels,
 library call timed in turns.
 
 The second-to-last line is the ``kernels`` JSON record (all five
-kernels; the lane scan's launches are phase 4's and phase 8's); the last
+kernels; the lane scan's launches are phases 4, 8 and 9's); the last
 is ``{"ok": true, "device": {...}}``.
 """
+import gc
 import hashlib
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -160,6 +177,174 @@ def fixture_mismatch(entry: dict, y: np.ndarray, rel_tol: float):
             <= rel_tol * entry["max_abs_sum"]):
         return f"max |y| {np.abs(flat).max()!r} vs {entry['max_abs']!r}"
     return None
+
+
+def serve_greedy(M, cfg, params, prompts, steps: int, max_seq: int, dev
+                 ) -> list[np.ndarray]:
+    """The procedure of ``tests/golden/torch_model_logits.json``, on the
+    port's model module ``M``: each prompt prefilled alone into a
+    one-slot float32 cache and merged into row r of a batched cache, then
+    ``steps`` greedy ``decode_step``s at batch ``len(prompts)``, each row
+    at its own position.  Returns the (B, vocab) float32 logits of the
+    prefills and of every step."""
+    from repro_torch.serving.engine import merge_slot
+
+    cache = M.init_cache(cfg, len(prompts), max_seq, torch.float32,
+                         device=dev)
+    rows = []
+    for r, prompt in enumerate(prompts):
+        one = M.init_cache(cfg, 1, max_seq, torch.float32, device=dev)
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        logits, one = M.prefill(cfg, params, {"tokens": toks}, one)
+        merge_slot(cache, one, r)
+        rows.append(logits[0])
+    out = [torch.stack(rows)]
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device=dev)
+    for _ in range(steps):
+        tok = out[-1].argmax(dim=-1).to(torch.int32)[:, None]
+        logits, cache = M.decode_step(cfg, params, cache, tok, pos)
+        out.append(logits)
+        pos = pos + 1
+    return [o.float().cpu().numpy() for o in out]
+
+
+def logit_records(steps: list, seed: int, k: int = 64) -> list[dict]:
+    """Per step: the greedy tokens, max |logit| and, per row, ``k``
+    (index, value) samples: the greedy token's and ``k - 1`` drawn from
+    ``np.random.default_rng([seed, step, row])``."""
+    out = []
+    for s, logits in enumerate(steps):
+        logits = np.asarray(logits, np.float32)
+        toks = logits.argmax(axis=-1)
+        idx, val = [], []
+        for r in range(logits.shape[0]):
+            pick = np.random.default_rng([seed, s, r]).choice(
+                logits.shape[1], size=k - 1, replace=False)
+            ii = [int(toks[r])] + [int(i) for i in pick]
+            idx.append(ii)
+            val.append([float(logits[r, i]) for i in ii])
+        out.append(dict(tokens=[int(t) for t in toks],
+                        max_abs=float(np.abs(logits).max()),
+                        idx=idx, val=val))
+    return out
+
+
+def logits_mismatch(fixture_steps: list, steps: list, rel_tol: float
+                    ) -> tuple[str | None, float]:
+    """Why ``steps`` (per step, (B, vocab) logits) do not reproduce the
+    fixture's records, or None; and the largest error over the recorded
+    logits relative to its step's max |logit|."""
+    worst = 0.0
+    for s, (rec, logits) in enumerate(zip(fixture_steps, steps)):
+        tol = rel_tol * rec["max_abs"]
+        for r, (ii, vv) in enumerate(zip(rec["idx"], rec["val"])):
+            err = np.abs(logits[r, ii].astype(np.float64) - np.asarray(vv))
+            worst = max(worst, float(err.max()) / rec["max_abs"])
+            if not (err <= tol).all():
+                k = int(err.argmax())
+                return (f"step {s} row {r} logit {ii[k]}: "
+                        f"{logits[r, ii[k]]!r} vs {vv[k]!r} (limit "
+                        f"{tol:.3g})", worst)
+        got = [int(t) for t in logits.argmax(axis=-1)]
+        if got != rec["tokens"]:
+            return f"step {s}: greedy tokens {got} != {rec['tokens']}", worst
+    if len(steps) != len(fixture_steps):
+        return f"{len(steps)} steps != {len(fixture_steps)}", worst
+    return None, worst
+
+
+def smoke_batch(cfg, rng, b: int = 2, s: int = 32) -> dict:
+    """``tests/test_models_smoke.py::_smoke_batch``'s inputs as float32 /
+    int32 numpy arrays (labels drawn, to keep the draws in step, and
+    dropped): embeddings for embedding models, token ids (and patches
+    for prefix-patch models) otherwise."""
+    batch = {}
+    if cfg.input_mode == "embeddings":
+        batch["embeds"] = (rng.standard_normal((b, s, cfg.d_model))
+                           .astype(np.float32) * np.float32(0.1))
+        rng.integers(0, cfg.vocab, (b, s))
+    else:
+        toks = s - cfg.prefix_patches
+        batch["tokens"] = rng.integers(0, cfg.vocab, (b, toks)).astype(
+            np.int32)
+        rng.integers(0, cfg.vocab, (b, toks))
+        if cfg.prefix_patches:
+            batch["patches"] = (rng.standard_normal(
+                (b, cfg.prefix_patches, cfg.d_model)).astype(np.float32)
+                * np.float32(0.1))
+    return batch
+
+
+def model_steps(M, cfg, params, batch: dict, dev, steps: int = 4
+                ) -> list[np.ndarray]:
+    """``forward`` of ``batch``, then ``prefill`` of all but its last 4
+    inputs and ``steps`` greedy ``decode_step``s at batch 2, row 1 two
+    positions behind row 0; the float32 logits of each, on ``dev``.
+    Embedding models decode seeded random frame embeddings."""
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    key = "embeds" if "embeds" in tb else "tokens"
+    n_in = tb[key].shape[1]
+    fwd, _ = M.forward(cfg, params, tb)
+    cache = M.init_cache(cfg, 2, cfg.prefix_patches + n_in + 8,
+                         torch.float32, device=dev)
+    last, cache = M.prefill(cfg, params, dict(tb, **{key: tb[key][:, :-4]}),
+                            cache)
+    out = [fwd, last]
+    start = cfg.prefix_patches + n_in - 4
+    rng = np.random.default_rng(7)
+    for j in range(steps):
+        pos = torch.tensor([start + j, start - 2 + j], dtype=torch.int32,
+                           device=dev)
+        if cfg.input_mode == "embeddings":
+            tok = torch.as_tensor((rng.standard_normal((2, 1, cfg.d_model))
+                                   * 0.1).astype(np.float32), device=dev)
+        else:
+            tok = out[-1].argmax(dim=-1).to(torch.int32)[:, None]
+        logits, cache = M.decode_step(cfg, params, cache, tok, pos)
+        out.append(logits)
+    return [o.float().cpu().numpy() for o in out]
+
+
+def steps_mismatch(want: list, got: list, rel_tol: float,
+                   greedy: bool = True) -> tuple[str | None, float]:
+    """Why two runs of :func:`model_steps` differ (every logit within
+    ``rel_tol`` x its step's max |logit|, greedy tokens equal), or None;
+    and the largest error relative to its step's max |logit|."""
+    worst = 0.0
+    for s, (w, g) in enumerate(zip(want, got)):
+        scale = float(np.abs(w).max())
+        err = float(np.abs(w.astype(np.float64) - g).max())
+        worst = max(worst, err / scale)
+        if not err <= rel_tol * scale:
+            return f"step {s}: max error {err!r} of max |logit| {scale!r}", \
+                worst
+        if greedy and not np.array_equal(w.argmax(-1), g.argmax(-1)):
+            return f"step {s}: greedy tokens differ", worst
+    return None, worst
+
+
+def run_launcher(args: list[str], timeout: int = 600) -> tuple[str, float]:
+    """``python -m repro_torch.launch.serve ARGS`` in a fresh process on
+    this checkout's sources; its standard output and wall seconds.
+    Fails on a nonzero exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *args], capture_output=True, text=True, env=env,
+                         timeout=timeout, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"launcher {args} exited {out.returncode}:\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout, wall
+
+
+def lane_cache_row(out: str) -> dict:
+    """The launcher's ``serve/lane_cache,hits=..,misses=..,size=..`` row."""
+    row = re.search(r"^serve/lane_cache,(.*)$", out, re.M)
+    check(row is not None, f"no serve/lane_cache row in:\n{out}")
+    return {k: int(v) for k, v in
+            (kv.split("=") for kv in row.group(1).split(","))}
 
 
 # The PIM-tile kernels: wrapper name -> (the TPU kernel it replaces, source).
@@ -891,6 +1076,295 @@ def serving_without_a_model(dev, card: str) -> dict:
                 phase_wall_s=sum(walls.values()))
 
 
+DECODE_REPS = 20                   # timed decode steps per batch size
+
+
+def decode_bytes(cfg, params, batch: int) -> int:
+    """Bytes one decode step must read: every parameter once except the
+    embedding table, of which only the ``batch`` gathered rows."""
+    def size(tree):
+        if isinstance(tree, dict):
+            return sum(size(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+    emb = params["embed"]
+    return (size(params) - size(emb)
+            + batch * cfg.d_model * emb.element_size())
+
+
+def serving_with_a_model(dev, card: str, serve_cfg=None) -> dict:
+    """Phase 9: the port's models and serving engine on the card.  Every
+    part's wall ends in ``torch.cuda.synchronize()``; the lane-scan
+    launch count is set to 0 before ``serve_full`` and read after its
+    replays (the launcher's subprocesses count their own).
+    ``serve_full`` serves ``serve_cfg`` (default: the full granite-8b;
+    the planner is always the full granite-8b's)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.core import engine
+    from repro_torch.kernels import lane_scan
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import (draw_numpy_params,
+                                            params_from_numpy,
+                                            params_to_numpy)
+    from repro_torch.serving import scenarios as scen
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.offload import OffloadPlanner
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls would not run in full float32")
+    walls: dict = {}
+    out: dict = {"walls": walls}
+
+    def close(part: str, t0: float) -> None:
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t0
+        print(f"[9] {part}: {walls[part]!r} s wall ({card})")
+
+    # -- model_logits: granite-8b widths, 2 layers, vs the JAX fixture ----
+    t0 = time.perf_counter()
+    fx = json.loads((ROOT / "tests/golden/torch_model_logits.json")
+                    .read_text())
+    cfg2 = dataclasses.replace(ARCHS[fx["arch"]], n_layers=fx["n_layers"])
+    params = params_from_numpy(draw_numpy_params(cfg2, fx["seed"]), dev)
+    steps = serve_greedy(M, cfg2, params, fx["prompts"], fx["decode_steps"],
+                         fx["max_seq"], dev)
+    msg, worst = logits_mismatch(fx["steps"], steps, fx["rel_tol"])
+    check(msg is None, f"model_logits: {msg}")
+    del params, steps
+    torch.cuda.empty_cache()
+    close("model_logits", t0)
+    out["model_logits"] = dict(worst_rel_err=worst, rel_tol=fx["rel_tol"],
+                               tokens=[r["tokens"] for r in fx["steps"]])
+    print(f"[9] model_logits: granite-8b widths x {fx['n_layers']} layers "
+          f"== tests/golden/torch_model_logits.json, largest error "
+          f"{worst!r} x max|logit| (limit {fx['rel_tol']})")
+
+    # -- serve_full: 36 layers, f32 weights drawn on the card --------------
+    t0 = time.perf_counter()
+    cfg = serve_cfg or ARCHS["granite-8b"]
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    engine.lane_cache_reset()
+    lane_scan.LAUNCHES = 0
+    planner = OffloadPlanner(ARCHS["granite-8b"], device=dev)
+    replays = {}
+    for name in ("serve_trace", "spec_decode_trace"):
+        fixture = json.loads((ROOT / "tests/golden" / f"{name}.json")
+                             .read_text())
+        tr = time.perf_counter()
+        got = scen.replay_trace(fixture, cfg, params, planner, device=dev)
+        torch.cuda.synchronize()
+        replays[name] = dict(wall_s=time.perf_counter() - tr,
+                             steps=got["steps"], tokens=got["tokens"],
+                             prefills=got["prefills"])
+        check(json.loads(json.dumps(got)) == fixture,
+              f"serve_full: {name} not reproduced at full width")
+    launches = lane_scan.LAUNCHES
+    check(launches > 0, "serve_full launched no lane scan")
+    out["launches"] = launches
+
+    # three requests together == each alone in one slot
+    rng = np.random.default_rng(5)
+    shapes = ((5, 6), (9, 4), (3, 7))
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n, _m in shapes]
+
+    def serve(idx: list[int]) -> list[list[int]]:
+        eng = ServingEngine(cfg, params, slots=len(idx), max_seq=32,
+                            device=dev)
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=shapes[i][1])
+                for i in idx]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [r.out for r in reqs]
+
+    together = serve([0, 1, 2])
+    alone = [serve([i])[0] for i in range(3)]
+    check(together == alone, f"batched streams {together} != alone {alone}")
+
+    # forward of prompt + generated == prefill + decode_step's logits
+    seq = np.concatenate([prompts[1], np.asarray(together[1][:-1])])
+    cache = M.init_cache(cfg, 1, 32, torch.float32, device=dev)
+    logits, cache = M.prefill(cfg, params, {"tokens": torch.as_tensor(
+        prompts[1][None].astype(np.int32), device=dev)}, cache)
+    for j, tok in enumerate(together[1][:-1]):
+        logits, cache = M.decode_step(
+            cfg, params, cache, torch.tensor([[tok]], dtype=torch.int32,
+                                             device=dev),
+            torch.tensor(len(prompts[1]) + j, dtype=torch.int32, device=dev))
+    fwd, _ = M.forward(cfg, params, {"tokens": torch.as_tensor(
+        seq[None].astype(np.int32), device=dev)})
+    scale = float(fwd[0, -1].abs().max())
+    err = float((fwd[0, -1] - logits[0]).abs().max())
+    check(err <= 1e-3 * scale, f"forward vs decode: {err!r} of {scale!r}")
+    out["forward_vs_decode_rel_err"] = err / scale
+
+    # times: prefill by prompt length, decode steps at batch 1 and 4
+    prefill_ms = {}
+    for n in (4, 8, 16, 32):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, n))
+                               .astype(np.int32), device=dev)
+        times = []
+        for _ in range(4):
+            c1 = M.init_cache(cfg, 1, 64, torch.float32, device=dev)
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            M.prefill(cfg, params, {"tokens": toks}, c1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - tp) * 1e3)
+        prefill_ms[n] = float(np.median(times[1:]))
+    decode = {}
+    for b in (1, 4):
+        cache = M.init_cache(cfg, b, 64, torch.float32, device=dev)
+        tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        pos = torch.arange(8, 8 + b, dtype=torch.int32, device=dev)
+        times = []
+        for _ in range(DECODE_REPS + 2):
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            logits, cache = M.decode_step(cfg, params, cache, tok, pos)
+            tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - tp) * 1e3)
+            pos = pos + 1
+        ms = float(np.median(times[2:]))
+        nbytes = decode_bytes(cfg, params, b)
+        decode[b] = dict(ms=ms, min_ms=float(min(times[2:])),
+                         bytes=nbytes,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         tokens_per_s=b / ms * 1e3,
+                         **profile_decode(M, cfg, params, cache, tok, pos))
+        decode[b]["busy_share"] = (decode[b]["device_ms"] / ms
+                                   if decode[b]["device_ms"] else None)
+    out.update(params=n_params, init_s=init_s, replays=replays,
+               prefill_ms=prefill_ms, decode=decode,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    del params, cache, logits, fwd
+    torch.cuda.empty_cache()
+    close("serve_full", t0)
+    print(f"[9] serve_full: {cfg.name}, {cfg.n_layers} layers, {n_params} "
+          f"f32 params "
+          f"drawn on the card in {init_s:.3f} s; replays "
+          f"{json.dumps(replays)}; {launches} lane-scan launches")
+    print(f"[9] serve_full: prefill ms by prompt length "
+          f"{json.dumps(prefill_ms)}")
+    for b, d in decode.items():
+        print(f"[9] serve_full: decode step at batch {b}: {d['ms']!r} ms "
+              f"median of {DECODE_REPS} (min {d['min_ms']!r}), bytes bound "
+              f"{d['bound_ms']!r} ms ({d['bytes']} bytes), "
+              f"{d['tokens_per_s']!r} tokens/s; profiler: device "
+              f"{d['device_ms']!r} ms and {d['launches_per_step']!r} "
+              f"kernel launches a step, busy share {d['busy_share']!r} "
+              f"({card})")
+        print(f"[9] serve_full: decode step at batch {b}, most device time: "
+              f"{json.dumps(d['top_kernels'])}")
+    print(f"[9] serve_full: max_memory_allocated "
+          f"{out['max_memory_allocated']} bytes")
+
+    # -- launcher_warm: the entry point, cold then warm --------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--scenario", "bursty", "--policy", "hysteresis", "--quick",
+                "--cache-dir", tmp]
+        runs = []
+        for _ in range(2):
+            text, wall = run_launcher(argv)
+            ttfb = re.search(r"^serve/time_to_first_batch,([0-9.]+)$", text,
+                             re.M)
+            check(ttfb is not None, f"no time_to_first_batch row:\n{text}")
+            runs.append(dict(text=text, wall_s=wall,
+                             ttfb_s=float(ttfb.group(1)),
+                             lane_cache=lane_cache_row(text)))
+        cold, warm = runs
+        saved = re.search(r"^warm start: saved (\d+) lanes$", cold["text"],
+                          re.M)
+        check(cold["lane_cache"]["misses"] > 0 and saved is not None
+              and int(saved.group(1)) > 0,
+              f"cold launcher run:\n{cold['text']}")
+        check(f"{saved.group(1)} lanes loaded" in warm["text"]
+              and warm["lane_cache"]["misses"] == 0
+              and warm["lane_cache"]["hits"] > 0
+              and warm["ttfb_s"] <= cold["ttfb_s"],
+              f"warm launcher run:\n{warm['text']}")
+        mono, mono_wall = run_launcher(["--requests", "8"])
+        check("served 8 requests (monolithic engine)" in mono,
+              f"monolithic launcher run:\n{mono}")
+    close("launcher_warm", t0)
+    out["launcher"] = dict(
+        cold={k: v for k, v in cold.items() if k != "text"},
+        warm={k: v for k, v in warm.items() if k != "text"},
+        monolithic_wall_s=mono_wall)
+    print(f"[9] launcher_warm: {json.dumps(out['launcher'])}")
+
+    # -- archs_smoke: every arch's smoke config, card == CPU ---------------
+    t0 = time.perf_counter()
+    archs = {}
+    for name, full in ARCHS.items():
+        scfg = smoke_config(full)
+        cpu = M.init_params(scfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        card_params = params_from_numpy(params_to_numpy(cpu), dev)
+        batch = smoke_batch(scfg, np.random.default_rng(0))
+        msg, worst = steps_mismatch(
+            model_steps(M, scfg, cpu, batch, "cpu"),
+            model_steps(M, scfg, card_params, batch, dev), 1e-4)
+        check(msg is None, f"archs_smoke {name}: card != CPU: {msg}")
+        archs[name] = worst
+    close("archs_smoke", t0)
+    out["archs_smoke"] = archs
+    print(f"[9] archs_smoke: card == CPU on all {len(archs)} archs, largest "
+          f"error x max|logit| {json.dumps(archs)}")
+    out["phase_wall_s"] = sum(walls.values())
+    return out
+
+
+def profile_decode(M, cfg, params, cache, tok, pos, steps: int = 3) -> dict:
+    """Device time and kernel launches per decode step, and the five
+    kernels with the most device time, from ``torch.profiler`` over
+    ``steps`` steps (device_ms 0 when the profiler saw no device
+    activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _logits, cache = M.decode_step(cfg, params, cache, tok, pos)
+            pos = pos + 1
+        torch.cuda.synchronize()
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                 "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    device_us = 0
+    by_kernel = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            # CPU ops carry their kernels' time too: count kernels once
+            continue
+        us = ev.self_device_time_total
+        device_us += us
+        by_kernel.append((us, ev.key[:80], ev.count))
+    top = [dict(kernel=k, ms=us / 1e3 / steps, calls=n / steps)
+           for us, k, n in sorted(by_kernel, reverse=True)[:5]]
+    return dict(device_ms=device_us / 1e3 / steps,
+                launches_per_step=launches / steps, top_kernels=top)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1285,12 +1759,18 @@ def main() -> int:
     # ---- 8. serving without a model ---------------------------------------
     serving = serving_without_a_model(dev, card)
 
+    # ---- 9. serving with a model --------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    with_model = serving_with_a_model(dev, card)
+
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{
         "name": "lane_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lane_scan.cu",
         "replaces": "src/repro/kernels/lane_scan.py:49",
-        "launches": total_launches + serving["launches"],
+        "launches": (total_launches + serving["launches"]
+                     + with_model["launches"]),
         "max_abs_err": worst,
         "ms": main_fleet["ms"], "plain_ms": plain_ms,
         "bound_ms": main_fleet["bound_ms"],
@@ -1303,8 +1783,10 @@ def main() -> int:
         "part_seconds": {p: dict(wall=walls[p], **split[p])
                          for p in walls},
         "launches_by_phase": {"4": total_launches,
-                              "8": serving["launches"]},
-        "serving": serving}, *pim_entries]}
+                              "8": serving["launches"],
+                              "9": with_model["launches"]},
+        "serving": serving, "serving_with_a_model": with_model},
+        *pim_entries]}
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -159,6 +159,40 @@ def lane_cache_touch(pairs: Iterable[tuple]) -> int:
     return n
 
 
+def lane_cache_export() -> list[tuple]:
+    """The lane LRU as ``[(key, total, issue | None), ...]``, oldest
+    first, so re-importing keeps the eviction order.  Keys are plain
+    frozen dataclasses, enums, tuples and bytes, so the list pickles
+    (``core/warmstart.py`` writes it to disk)."""
+    with _LANE_CACHE_LOCK:
+        return [(k, total, issue)
+                for k, (total, issue, _tag) in _LANE_CACHE.items()]
+
+
+def lane_cache_import(entries: Iterable[tuple]) -> int:
+    """Insert exported entries into the lane LRU (tags recomputed, each
+    entry moved to the MRU end); returns the count kept.  Silent on the
+    counters: loading a snapshot is not engine work.  Entries beyond
+    capacity evict oldest first without counting evictions; a disabled
+    cache keeps nothing."""
+    n = 0
+    with _LANE_CACHE_LOCK:
+        if _LANE_CACHE_MAX <= 0:
+            return 0
+        for key, total, issue in entries:
+            if issue is not None:
+                issue = np.asarray(issue)
+                issue.setflags(write=False)
+            total = int(total)
+            _LANE_CACHE[key] = (total, issue, _lane_tag(total, issue))
+            _LANE_CACHE.move_to_end(key)
+            n += 1
+        while len(_LANE_CACHE) > _LANE_CACHE_MAX:
+            _LANE_CACHE.popitem(last=False)
+            n -= 1
+    return n
+
+
 def _lane_cache_get(key, need_issue: bool):
     if _LANE_CACHE_MAX <= 0:
         return None

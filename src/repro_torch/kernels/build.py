@@ -5,10 +5,11 @@ them in seconds into one shared library that ``ctypes`` loads; nothing
 includes PyTorch's headers.  Each source compiles in its own ``nvcc``
 process, all started together, and one more links the objects.  The
 library is built on first use into ``_build/`` beside this file (ignored
-by git), named by a hash of every file under ``csrc/`` and the flags, so
-an edited source or header rebuilds and concurrent processes never load
-a half-written file (each builds in a temporary directory and renames
-the library into place).
+by git) or the directory :func:`configure_build_dir` names, named by a
+hash of every file under ``csrc/`` and the flags, so an edited source or
+header rebuilds and concurrent processes never load a half-written file
+(each builds in a temporary directory and renames the library into
+place).
 
 Every launch function takes pointers and the stream as ``void*`` and
 returns the ``cudaError_t`` of its launch; :func:`launch` calls one with
@@ -68,6 +69,15 @@ def nvcc_path() -> str:
     if default.exists():
         return str(default)
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def configure_build_dir(path: "str | os.PathLike") -> pathlib.Path:
+    """Build and look for the library under ``path`` from now on (the
+    warm-start cache, ``<cache_dir>/nvcc``); the name keeps its hash.  A
+    library this process already loaded stays in use."""
+    global BUILD_DIR
+    BUILD_DIR = pathlib.Path(path)
+    return BUILD_DIR
 
 
 def _digest() -> str:

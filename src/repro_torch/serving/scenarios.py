@@ -34,9 +34,12 @@ speculative serving: the seeded accept/advance round math in
 :class:`SpecDecodeConfig` is THE spec, keyed per (request, round) so it
 is independent of slot processing order.  ``replay_batches`` re-derives
 a recorded trace's occupancy (``tests/golden/serve_trace.json``,
-``spec_decode_trace.json``) from its embedded schedule alone.  Serving
-with a model (``run_scenario`` / ``replay_trace``) is not part of this
-package yet.
+``spec_decode_trace.json``) from its embedded schedule alone.
+
+``run_scenario`` / ``replay_trace`` serve a scenario with a model
+through the monolithic ``ServingEngine``; the disaggregated cells, the
+autoscaler and the lane mesh are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -788,3 +791,148 @@ def replay_batches(trace: dict) -> list[int]:
         sd = SpecDecodeConfig.from_record(trace["spec_decode"]["config"])
         return simulate_spec_decode(spec, sd)["per_tick_batch"]
     return simulate_batches(spec)
+
+
+# ---------------------------------------------------------------------
+# End-to-end: drive the real ServingEngine and emit a replayable trace
+# ---------------------------------------------------------------------
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet ({item} of the port's "
+        f"queue); only the monolithic engine serves scenarios here")
+
+
+def run_scenario(scenario: ScenarioSpec, cfg, params, planner,
+                 policy: str = "per-step", fence: bool = True,
+                 max_seq: int | None = None,
+                 policy_kw: dict | None = None, mesh=None,
+                 disagg: "bool | DisaggConfig" = False,
+                 slo: dict[int, str] | None = None,
+                 spec_decode: SpecDecodeConfig | None = None,
+                 autoscale: AutoscaleConfig | None = None,
+                 prefill_scope=None, decode_scope=None,
+                 on_tick=None, device=None) -> dict:
+    """Serve the scenario end to end (real model decode) under an
+    adaptive offload controller; return the replayable trace record.
+
+    The trace carries only platform-independent telemetry — scheduling,
+    occupancy, offload decisions and planner-derived speedups — never
+    model token values, so a recorded golden replays byte-exactly
+    through any model of the right vocabulary.
+
+    ``spec_decode`` serves the scenario speculatively (the trace gains a
+    ``"spec_decode"`` key); ``on_tick`` is called as ``fn(t, engine)`` at
+    the top of every serve tick.  ``device`` is the model's (default:
+    the card).  The disaggregated cells (``disagg``; ``slo`` classes
+    only matter there), the autoscaler, per-cell backend scopes and the
+    lane mesh are not ported: asking for one raises
+    ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise _not_ported("the lane mesh (mesh=)", "Queue 1 item 8")
+    if disagg:
+        raise _not_ported("disaggregated serving (disagg=)",
+                          "Queue 1 item 6")
+    if autoscale is not None:
+        raise _not_ported("autoscaling (autoscale=)", "Queue 1 item 6")
+    if prefill_scope is not None or decode_scope is not None:
+        raise _not_ported("per-cell backend scopes", "Queue 1 item 6")
+    return _run_scenario(scenario, cfg, params, planner, policy, fence,
+                         max_seq, policy_kw, on_tick=on_tick,
+                         spec_decode=spec_decode, device=device)
+
+
+def _run_scenario(scenario, cfg, params, planner, policy, fence,
+                  max_seq, policy_kw, on_tick=None, spec_decode=None,
+                  device=None) -> dict:
+    from .engine import Request, ServingEngine
+    from .policy import OffloadController
+
+    controller = OffloadController(planner, policy=policy, fence=fence,
+                                   **(policy_kw or {}))
+    if max_seq is None:
+        max_seq = max((a.prompt_len + a.max_new
+                       for a in scenario.arrivals), default=16)
+        max_seq = max(64, 2 * max_seq)
+    eng = ServingEngine(cfg, params, slots=scenario.slots, max_seq=max_seq,
+                        controller=controller, spec_decode=spec_decode,
+                        device=device)
+    if spec_decode is not None:
+        # Keep the hot small-shape draft lanes pinned at the MRU end of
+        # the lane LRU for the whole run.
+        planner.plan_draft(fence=fence)
+    rng = np.random.default_rng(scenario.seed + 1)   # token values only
+    pending = sorted(scenario.arrivals, key=lambda a: (a.step, a.rid))
+    reqs = {a.rid: Request(rid=a.rid,
+                           prompt=rng.integers(0, cfg.vocab,
+                                               size=a.prompt_len),
+                           max_new=a.max_new)
+            for a in pending}
+    i = 0
+    t = 0
+    per_tick: list[int] = []
+    while i < len(pending) or any(eng.active) or eng.waiting:
+        if on_tick is not None:
+            on_tick(t, eng)
+        if spec_decode is not None:
+            planner.touch_draft(fence=fence)
+        while i < len(pending) and pending[i].step <= t:
+            eng.submit(reqs[pending[i].rid])
+            i += 1
+        stepped = eng.step()
+        per_tick.append(eng.step_batches[-1] if stepped else 0)
+        t += 1
+        if t > 100_000:
+            step_of = {a.rid: a.step for a in scenario.arrivals}
+            queued = [r.rid for r in eng.waiting]
+            raise ScenarioDrainError(
+                scenario.name, 100_000,
+                queues=dict(waiting=len(eng.waiting),
+                            pending=len(pending) - i),
+                oldest_age=(t - min(step_of[r] for r in queued)
+                            if queued else None),
+                last_batch=[r.rid for r in eng.active if r is not None])
+    stats = eng.summary()
+    assert all(r.done for r in reqs.values())
+    trace = dict(
+        scenario=scenario.to_record(),
+        policy=controller.policy.name,
+        fence=fence,
+        per_tick_batch=per_tick,
+        occupancy={str(k): v for k, v in
+                   sorted(stats["batch_occupancy"].items())},
+        steps=stats["steps"], tokens=stats["tokens"],
+        prefills=stats["prefills"],
+        controller=controller.report(),
+        per_step=[r.to_record() for r in controller.trace],
+    )
+    if spec_decode is not None:
+        trace["spec_decode"] = dict(config=spec_decode.to_record(),
+                                    **eng.spec_report())
+    return trace
+
+
+def replay_trace(trace: dict, cfg, params, planner, mesh=None,
+                 device=None) -> dict:
+    """Re-serve a recorded trace end to end and return the fresh record.
+
+    The scenario schedule, policy, fence mode and speculative config are
+    taken from the trace itself, so a replay is byte-comparable to the
+    recording (``tests/golden/serve_trace.json``,
+    ``spec_decode_trace.json``).  Traces recorded through the
+    disaggregated cells or the autoscaler raise ``NotImplementedError``.
+    """
+    if "disagg" in trace:
+        raise _not_ported("replaying a disaggregated trace",
+                          "Queue 1 item 6")
+    if "autoscale" in trace:
+        raise _not_ported("replaying an autoscaled trace", "Queue 1 item 6")
+    spec_decode = None
+    if "spec_decode" in trace:
+        spec_decode = SpecDecodeConfig.from_record(
+            trace["spec_decode"]["config"])
+    return run_scenario(ScenarioSpec.from_record(trace["scenario"]),
+                        cfg, params, planner, policy=trace["policy"],
+                        fence=trace["fence"], mesh=mesh,
+                        spec_decode=spec_decode, device=device)

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, granite_8b
+from repro_torch.configs import ARCHS, granite_8b, smoke_config
 from repro_torch.core import commands as C
 from repro_torch.core import engine
 from repro_torch.core.engine_ref import RefEngine
@@ -26,11 +26,14 @@ from repro_torch.core.pimsim import PimSimulator
 from repro_torch.core.timing import (DEFAULT_SYSTEM, LpddrTimings, PimSpec,
                                      SystemSpec)
 from repro_torch.kernels import lane_scan, ops, pim_gemm, pim_gemv, ref
+from repro_torch.models import model as M
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.pimkernel.executor import (FunctionalGemv, GemvRequest,
                                             PimExecutor)
 from repro_torch.pimkernel.tileconfig import ALL_DTYPES, PimDType
+from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.offload import OffloadPlanner
-from repro_torch.serving.scenarios import run_policy_over_trace
+from repro_torch.serving.scenarios import replay_trace, run_policy_over_trace
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -702,3 +705,70 @@ def test_granite_8b_linear_fixture_on_card(dev):
     assert gemv["bytes"] == gemv_variants["bytes"]
     assert sum(gemv.values()) - sum(gemv_variants.values()) == (
         pim_gemv.LAUNCHES["pim_gemv_int"] - before["pim_gemv_int"])
+
+
+# ---------------------------------------------------------------------
+# The models and serving with a model (chip_smoke.py phase 9)
+# ---------------------------------------------------------------------
+
+def _smoke_weights(arch: str, dev):
+    cfg = smoke_config(ARCHS[arch])
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, cpu, params_from_numpy(params_to_numpy(cpu), dev)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_smoke_model_on_card_equals_cpu(dev, arch):
+    """forward, prefill and 4 ragged decode steps: every logit within
+    1e-4 x its step's max |logit| and the greedy tokens equal."""
+    smoke = _chip_smoke()
+    cfg, cpu, card = _smoke_weights(arch, dev)
+    batch = smoke.smoke_batch(cfg, np.random.default_rng(0))
+    msg, _worst = smoke.steps_mismatch(
+        smoke.model_steps(M, cfg, cpu, batch, "cpu"),
+        smoke.model_steps(M, cfg, card, batch, dev), 1e-4)
+    assert msg is None, msg
+
+
+def test_engine_streams_on_card_equal_cpu(dev):
+    cfg, cpu, card = _smoke_weights("granite-8b", dev)
+    streams = []
+    for params, device in ((cpu, "cpu"), (card, dev)):
+        eng = ServingEngine(cfg, params, slots=3, max_seq=40, device=device)
+        rng = np.random.default_rng(4)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                                   size=3 + 2 * i),
+                        max_new=3 + i) for i in range(6)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        streams.append([r.out for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("name", ["serve_trace", "spec_decode_trace"])
+def test_replay_golden_on_card_with_a_cold_planner(dev, name):
+    cfg = smoke_config(ARCHS["granite-8b"])
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    fixture = json.loads((GOLDEN / f"{name}.json").read_text())
+    before = lane_scan.LAUNCHES
+    got = replay_trace(fixture, cfg, params,
+                       OffloadPlanner(ARCHS["granite-8b"], device=dev),
+                       device=dev)
+    assert lane_scan.LAUNCHES > before
+    assert json.loads(json.dumps(got)) == fixture
+
+
+def test_warm_start_round_trip_in_fresh_processes(dev, tmp_path):
+    """The launcher twice on one cache directory: the second process
+    loads every lane the first saved and resolves none."""
+    smoke = _chip_smoke()
+    argv = ["--scenario", "bursty", "--policy", "hysteresis", "--quick",
+            "--cache-dir", str(tmp_path)]
+    cold, _ = smoke.run_launcher(argv)
+    warm, _ = smoke.run_launcher(argv)
+    saved = int(cold.split("warm start: saved ")[1].split()[0])
+    assert saved > 0 and smoke.lane_cache_row(cold)["misses"] > 0
+    assert f"{saved} lanes loaded" in warm
+    assert smoke.lane_cache_row(warm)["misses"] == 0

@@ -14,6 +14,15 @@ port's own planner and kernel).
 The controller degrades to host-only serving only on an injected
 planner fault; any other planner error propagates after its retries,
 where the JAX package degrades on every exception.
+
+Serving with a model: the port's ``ServingEngine`` on the smoke
+granite-8b (weights from the JAX package's ``init_params``) gives the
+JAX engine's token streams and ``summary()``, vanilla and speculative;
+the port's ``replay_trace`` reproduces ``serve_trace.json`` and
+``spec_decode_trace.json`` exactly through a full-width port planner
+whose lane LRU holds the JAX package's resolved lanes
+(``lane_cache_import``), so no lane is resolved on the CPU; the serve
+launcher runs both modes and warm-starts from its cache directory.
 """
 import dataclasses
 import json
@@ -23,6 +32,7 @@ import numpy as np
 import pytest
 
 import repro.core  # noqa: F401  (first: the reference's import order)
+import jax
 from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import smoke_config as ref_smoke
 from repro.core import engine as ref_engine
@@ -33,12 +43,21 @@ from repro.serving.offload import GemvSite as RefSite
 from repro.serving.offload import OffloadDecision as RefDecision
 from repro.serving.offload import OffloadPlanner as RefPlanner
 
+from repro.models import model as RM
+from repro.serving.engine import Request as RefRequest
+from repro.serving.engine import ServingEngine as RefServingEngine
+
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.core import engine, faults
-from repro_torch.kernels import lane_scan
+from repro_torch.kernels import build, lane_scan
+from repro_torch.launch import serve as launcher
+from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving import policy, scenarios as scen
+from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.offload import (GemvSite, OffloadDecision,
                                          OffloadPlanner)
+
+from test_torch_warmstart import port_entries
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 GOLDENS = ("serve_trace", "disagg_trace", "spec_decode_trace")
@@ -234,13 +253,23 @@ def test_golden_scheduling_replays_without_model(name):
 # ---------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def full_width_decisions():
+def full_width_plan():
     """The JAX package's granite-8b W8A8 plan at full width, fenced, as
-    the goldens were recorded (computed once: ~40 s on the CPU)."""
+    the goldens were recorded, with its speculative draft plan; and its
+    resolved lanes as port lane-cache entries (computed once: ~45 s on
+    the CPU)."""
     ref_engine.lane_cache_reset()
-    decisions = RefPlanner(REF_ARCHS["granite-8b"]).plan(fence=True)
+    planner = RefPlanner(REF_ARCHS["granite-8b"])
+    decisions = planner.plan(fence=True)
+    planner.plan_draft(fence=True)
+    entries = port_entries(ref_engine.lane_cache_export())
     ref_engine.lane_cache_reset()
-    return decisions
+    return decisions, entries
+
+
+@pytest.fixture(scope="module")
+def full_width_decisions(full_width_plan):
+    return full_width_plan[0]
 
 
 @pytest.mark.parametrize("name", GOLDENS)
@@ -454,3 +483,123 @@ def test_lane_scan_failure_while_planning_ends_the_run(monkeypatch):
             c.observe(2)
     assert not c.planner_degraded
     assert "degrade" not in [e["kind"] for e in faults.events()]
+
+
+# ---------------------------------------------------------------------
+# Serving with a model (the smoke granite-8b, on the CPU)
+# ---------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def smoke_model():
+    """(ref cfg, port cfg, JAX params, the same weights as port tensors)."""
+    rcfg = ref_smoke(REF_ARCHS["granite-8b"])
+    rparams = RM.init_params(rcfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, rparams), "cpu")
+    return rcfg, smoke_config(ARCHS["granite-8b"]), rparams, params
+
+
+def _requests(cls, vocab: int):
+    rng = np.random.default_rng(9)
+    return [cls(rid=i, prompt=rng.integers(0, vocab, size=3 + (5 * i) % 9),
+                max_new=2 + (3 * i) % 7) for i in range(9)]
+
+
+@pytest.mark.parametrize("speculative", [False, True])
+def test_engine_streams_and_summary_equal(smoke_model, speculative):
+    rcfg, cfg, rparams, params = smoke_model
+    port, ref = planners()
+    runs = []
+    for eng_cls, req_cls, mod, model, planner, kw in (
+            (ServingEngine, Request, scen, (cfg, params), port,
+             dict(device="cpu")),
+            (RefServingEngine, RefRequest, ref_scen, (rcfg, rparams), ref,
+             {})):
+        sd = (mod.SpecDecodeConfig(draft_len=3, acceptance=0.6, seed=2)
+              if speculative else None)
+        eng = eng_cls(*model, slots=4, max_seq=40, planner=planner,
+                      step_telemetry=True, spec_decode=sd, **kw)
+        reqs = _requests(req_cls, rcfg.vocab)
+        for i, r in enumerate(reqs):
+            if i < 5:
+                eng.submit(r)
+        for _ in range(3):
+            eng.step()
+        for r in reqs[5:]:
+            eng.submit(r)
+        summary = eng.run(max_steps=500)
+        runs.append(roundtrip(dict(
+            outs=[r.out for r in reqs], done=[r.done for r in reqs],
+            summary=summary, spec=eng.spec_report(),
+            admit=eng.admit_ticks, completions=eng.completions,
+            steps=eng.step_batches)))
+    assert runs[0] == runs[1]
+    assert all(runs[0]["done"])
+    assert runs[0]["spec"]["rounds"] > 0 if speculative else \
+        runs[0]["spec"]["rounds"] == 0
+
+
+@pytest.mark.parametrize("name", ["serve_trace", "spec_decode_trace"])
+def test_replay_golden_through_the_port_model(name, smoke_model,
+                                              full_width_plan):
+    _rcfg, cfg, _rparams, params = smoke_model
+    assert engine.lane_cache_import(full_width_plan[1]) > 0
+    planner = OffloadPlanner(ARCHS["granite-8b"], device="cpu")
+    fixture = golden(name)
+    got = scen.replay_trace(fixture, cfg, params, planner, device="cpu")
+    assert roundtrip(got) == fixture
+    assert engine.lane_cache_info()["misses"] == 0
+
+
+def _launch(argv, capsys) -> str:
+    launcher.main(argv)
+    return capsys.readouterr().out
+
+
+def test_launcher_modes_and_warm_start(full_width_plan, tmp_path, capsys,
+                                       monkeypatch):
+    """Both modes of ``main`` on the CPU (the smoke model, the full-width
+    plan from imported lanes); a second scenario run warm-starts from the
+    first one's snapshot."""
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.delenv("REPRO_CACHE_DIR", raising=False)
+    engine.lane_cache_import(full_width_plan[1])
+    argv = ["--scenario", "bursty", "--policy", "hysteresis", "--quick",
+            "--device", "cpu", "--cache-dir", str(tmp_path)]
+    first = _launch(argv, capsys)
+    saved = int(first.split("warm start: saved ")[1].split()[0])
+    assert saved > 0 and "serve/time_to_first_batch," in first
+    assert "scenario bursty (seed=0" in first and "monolithic" in first
+    assert build.BUILD_DIR == tmp_path / "nvcc"
+    engine.lane_cache_reset()
+    second = _launch(argv, capsys)
+    assert f"{saved} lanes loaded" in second
+    assert "serve/lane_cache,hits=" in second and ",misses=0," in second
+    assert first.split("tokens in")[0].split(": ")[-1] == \
+        second.split("tokens in")[0].split(": ")[-1]
+
+    spec = _launch(["--scenario", "spec_decode", "--quick", "--device",
+                    "cpu", "--draft-len", "3"], capsys)
+    assert "serve/spec_decode,rounds=" in spec
+
+    mono = _launch(["--requests", "8", "--device", "cpu"], capsys)
+    assert "served 8 requests (monolithic engine)" in mono
+    assert "speedup" in mono and ",misses=0," in mono
+
+
+def test_unported_serving_modes_raise(smoke_model):
+    _rcfg, cfg, _rparams, params = smoke_model
+    planner = StubPlanner([])
+    spec = scen.make_scenario("bursty", seed=0, quick=True)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        scen.replay_trace(golden("disagg_trace"), cfg, params, planner,
+                          device="cpu")
+    for kw, item in ((dict(disagg=True), "item 6"),
+                     (dict(disagg=scen.DisaggConfig()), "item 6"),
+                     (dict(autoscale=scen.AutoscaleConfig()), "item 6"),
+                     (dict(prefill_scope=object()), "item 6"),
+                     (dict(mesh=2), "item 8")):
+        with pytest.raises(NotImplementedError, match=item):
+            scen.run_scenario(spec, cfg, params, planner, device="cpu", **kw)
+    assert planner.plans == 0
+    with pytest.raises(SystemExit):
+        launcher.main(["--disagg", "--device", "cpu"])
