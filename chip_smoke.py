@@ -78,7 +78,10 @@ Phases (any failure exits nonzero before the last line):
    times beside the decode step's bytes bound; ``launcher_warm``, the
    serve launcher in fresh processes, cold then warm from one cache
    directory (zero misses warm) and once in its monolithic mode;
-   ``archs_smoke``, every arch's smoke config on the card == on the CPU.
+   ``archs_smoke``, every arch's smoke config on the card == on the CPU,
+   in float32 and served quantized (W8, W4, W8 with the int8 KV cache:
+   the quantized leaves bit-equal, the int8 KV entries bit-equal to the
+   CPU's quantizer of the card's own float keys and values).
 
 Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
 flushed before every launch, one pair of CUDA events per launch, the
@@ -276,39 +279,56 @@ def smoke_batch(cfg, rng, b: int = 2, s: int = 32) -> dict:
     return batch
 
 
-def model_steps(M, cfg, params, batch: dict, dev, steps: int = 4
-                ) -> list[np.ndarray]:
+def paired_steps(M, cfg, cpu, card, batch: dict, dev, steps: int = 4,
+                 sync: bool = False) -> list[tuple[list, dict]]:
     """``forward`` of ``batch``, then ``prefill`` of all but its last 4
     inputs and ``steps`` greedy ``decode_step``s at batch 2, row 1 two
-    positions behind row 0; the float32 logits of each, on ``dev``.
-    Embedding models decode seeded random frame embeddings."""
-    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    key = "embeds" if "embeds" in tb else "tokens"
-    n_in = tb[key].shape[1]
-    fwd, _ = M.forward(cfg, params, tb)
-    cache = M.init_cache(cfg, 2, cfg.prefix_patches + n_in + 8,
-                         torch.float32, device=dev)
-    last, cache = M.prefill(cfg, params, dict(tb, **{key: tb[key][:, :-4]}),
-                            cache)
-    out = [fwd, last]
+    positions behind row 0: with the weights ``cpu`` on the CPU and
+    ``card`` on ``dev``, in lockstep, each side decoding its own greedy
+    tokens.  Embedding models decode seeded random frame embeddings.
+    ``sync`` starts each of the card's decode steps from the CPU's cache:
+    the int8 KV cache turns a float rounding difference that crosses a
+    rounding tie into a whole int8 step.  Per side (CPU, card): the
+    float32 logits of each call, and the cache after the prefill as
+    numpy arrays."""
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+
+    key = "embeds" if "embeds" in batch else "tokens"
+    n_in = batch[key].shape[1]
     start = cfg.prefix_patches + n_in - 4
+    sides = []
+    for params, d in ((cpu, torch.device("cpu")), (card, dev)):
+        tb = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+        fwd, _ = M.forward(cfg, params, tb)
+        cache = M.init_cache(cfg, 2, start + 12, torch.float32, device=d)
+        last, cache = M.prefill(cfg, params,
+                                dict(tb, **{key: tb[key][:, :-4]}), cache)
+        sides.append(dict(params=params, dev=d, cache=cache,
+                          out=[fwd, last], prefilled=params_to_numpy(cache)))
     rng = np.random.default_rng(7)
     for j in range(steps):
-        pos = torch.tensor([start + j, start - 2 + j], dtype=torch.int32,
-                           device=dev)
-        if cfg.input_mode == "embeddings":
-            tok = torch.as_tensor((rng.standard_normal((2, 1, cfg.d_model))
-                                   * 0.1).astype(np.float32), device=dev)
-        else:
-            tok = out[-1].argmax(dim=-1).to(torch.int32)[:, None]
-        logits, cache = M.decode_step(cfg, params, cache, tok, pos)
-        out.append(logits)
-    return [o.float().cpu().numpy() for o in out]
+        pos = np.array([start + j, start - 2 + j], np.int32)
+        frames = ((rng.standard_normal((2, 1, cfg.d_model)) * 0.1)
+                  .astype(np.float32) if cfg.input_mode == "embeddings"
+                  else None)
+        if sync:
+            sides[1]["cache"] = params_from_numpy(
+                params_to_numpy(sides[0]["cache"]), dev)
+        for side in sides:
+            d = side["dev"]
+            tok = (torch.as_tensor(frames, device=d) if frames is not None
+                   else side["out"][-1].argmax(dim=-1).to(torch.int32)[:, None])
+            logits, side["cache"] = M.decode_step(
+                cfg, side["params"], side["cache"], tok,
+                torch.as_tensor(pos, device=d))
+            side["out"].append(logits)
+    return [([o.float().cpu().numpy() for o in side["out"]], side["prefilled"])
+            for side in sides]
 
 
 def steps_mismatch(want: list, got: list, rel_tol: float,
                    greedy: bool = True) -> tuple[str | None, float]:
-    """Why two runs of :func:`model_steps` differ (every logit within
+    """Why the two sides of :func:`paired_steps` differ (every logit within
     ``rel_tol`` x its step's max |logit|, greedy tokens equal), or None;
     and the largest error relative to its step's max |logit|."""
     worst = 0.0
@@ -322,6 +342,78 @@ def steps_mismatch(want: list, got: list, rel_tol: float,
         if greedy and not np.array_equal(w.argmax(-1), g.argmax(-1)):
             return f"step {s}: greedy tokens differ", worst
     return None, worst
+
+
+QUANT_CASES = ((8, False), (4, False), (8, True))   # (weight bits, int8 KV)
+
+
+def bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def quantized_mismatch(M, cfg, cpu, card, batch: dict, dev, bits: int,
+                       kv_quant: bool) -> tuple[str | None, float]:
+    """``quantize_for_serving(bits)`` served with ``M.QUANT_BITS = bits``
+    (and ``M.KV_QUANT`` when ``kv_quant``), the card against the CPU;
+    ``cpu`` and ``card`` hold the same weights.  Every leaf of the
+    quantized tree, ``q`` and ``s`` included, bit-equal; the logits of
+    :func:`paired_steps` within 1e-4 x their step's max |logit| with
+    greedy tokens equal (with the int8 KV cache, each card decode step
+    starts from the CPU's cache); the card's int8 KV entries and scales
+    after the prefill bit-equal to the CPU's quantizer applied to the
+    card's own float32 keys and values.  Why not (a message) or None,
+    and the largest logit error relative to its step's max |logit|."""
+    qc = M.quantize_for_serving(cpu, bits)
+    qd = M.quantize_for_serving(card, bits)
+    for (path, a), (_, b) in zip(_items(qc), _items(qd)):
+        if not bits_equal(a.numpy(), b.cpu().numpy()):
+            return f"W{bits}: leaf {'/'.join(path)} not bit-equal", 0.0
+    M.QUANT_BITS = bits
+    try:
+        (want, _), (got, floats) = paired_steps(M, cfg, qc, qd, batch, dev)
+        if kv_quant:
+            M.KV_QUANT = True
+            (want, _), (got, int8) = paired_steps(M, cfg, qc, qd, batch,
+                                                  dev, sync=True)
+    finally:
+        M.QUANT_BITS, M.KV_QUANT = 0, False
+    msg, worst = steps_mismatch(want, got, 1e-4)
+    if msg is None and kv_quant and "kv" in floats:
+        for i, name in enumerate(("keys", "values")):
+            x = torch.from_numpy(floats["kv"][i])      # (L, B, S, H, D)
+            for layer in range(x.shape[0]):
+                sc = M.kv_quant_scale(x[layer])
+                if not (bits_equal(sc.numpy(), int8["kv_scale"][i][layer])
+                        and bits_equal(M.kv_quant(x[layer], sc).numpy(),
+                                       int8["kv"][i][layer])):
+                    msg = (f"layer {layer}'s int8 {name} on the card != "
+                           f"the CPU's quantizer of the card's floats")
+                    break
+    return (None if msg is None else f"W{bits} kv_quant={kv_quant}: {msg}",
+            worst)
+
+
+def kv_quant_mismatch(M, dev) -> str | None:
+    """The int8 KV cache's quantizer (``kv_quant_scale``, ``kv_quant``)
+    on the card against the CPU on the same float32 keys, half-way
+    values and all-zero heads included: scales and entries bit-equal,
+    or why not."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 40, 4, 64)).astype(np.float32)
+    x[1, :, 2] = 0.0                                  # an all-zero head
+    x[2, 0, :, 0] = 127.0                             # scale exactly 1
+    x[2, 1:, :, :] = (rng.integers(-127, 127, (39, 4, 64)) + 0.5)
+    cpu = torch.from_numpy(x)
+    card = cpu.to(dev)
+    sc, sd = M.kv_quant_scale(cpu), M.kv_quant_scale(card)
+    if not bits_equal(sc.numpy(), sd.cpu().numpy()):
+        return "kv_quant_scale: card != CPU"
+    if not bits_equal(M.kv_quant(cpu, sc).numpy(),
+                      M.kv_quant(card, sd).cpu().numpy()):
+        return "kv_quant: card != CPU"
+    return None
 
 
 def run_launcher(args: list[str], timeout: int = 600) -> tuple[str, float]:
@@ -1091,13 +1183,11 @@ def decode_bytes(cfg, params, batch: int) -> int:
             + batch * cfg.d_model * emb.element_size())
 
 
-def serving_with_a_model(dev, card: str, serve_cfg=None) -> dict:
+def serving_with_a_model(dev, card: str) -> dict:
     """Phase 9: the port's models and serving engine on the card.  Every
     part's wall ends in ``torch.cuda.synchronize()``; the lane-scan
     launch count is set to 0 before ``serve_full`` and read after its
-    replays (the launcher's subprocesses count their own).
-    ``serve_full`` serves ``serve_cfg`` (default: the full granite-8b;
-    the planner is always the full granite-8b's)."""
+    replays (the launcher's subprocesses count their own)."""
     import dataclasses
     import tempfile
 
@@ -1144,7 +1234,7 @@ def serving_with_a_model(dev, card: str, serve_cfg=None) -> dict:
 
     # -- serve_full: 36 layers, f32 weights drawn on the card --------------
     t0 = time.perf_counter()
-    cfg = serve_cfg or ARCHS["granite-8b"]
+    cfg = ARCHS["granite-8b"]
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
@@ -1153,7 +1243,7 @@ def serving_with_a_model(dev, card: str, serve_cfg=None) -> dict:
     n_params = sum(t.numel() for t in _leaves(params))
     engine.lane_cache_reset()
     lane_scan.LAUNCHES = 0
-    planner = OffloadPlanner(ARCHS["granite-8b"], device=dev)
+    planner = OffloadPlanner(cfg, device=dev)
     replays = {}
     for name in ("serve_trace", "spec_decode_trace"):
         fixture = json.loads((ROOT / "tests/golden" / f"{name}.json")
@@ -1305,22 +1395,36 @@ def serving_with_a_model(dev, card: str, serve_cfg=None) -> dict:
 
     # -- archs_smoke: every arch's smoke config, card == CPU ---------------
     t0 = time.perf_counter()
-    archs = {}
+    msg = kv_quant_mismatch(M, dev)
+    check(msg is None, f"archs_smoke: {msg}")
+    archs, quant = {}, {}
     for name, full in ARCHS.items():
         scfg = smoke_config(full)
         cpu = M.init_params(scfg, torch.Generator().manual_seed(0),
                             device="cpu")
         card_params = params_from_numpy(params_to_numpy(cpu), dev)
         batch = smoke_batch(scfg, np.random.default_rng(0))
-        msg, worst = steps_mismatch(
-            model_steps(M, scfg, cpu, batch, "cpu"),
-            model_steps(M, scfg, card_params, batch, dev), 1e-4)
+        (want, _), (got, _) = paired_steps(M, scfg, cpu, card_params, batch,
+                                           dev)
+        msg, worst = steps_mismatch(want, got, 1e-4)
         check(msg is None, f"archs_smoke {name}: card != CPU: {msg}")
         archs[name] = worst
+        for bits, kvq in QUANT_CASES:
+            msg, worst = quantized_mismatch(M, scfg, cpu, card_params,
+                                            batch, dev, bits, kvq)
+            check(msg is None, f"archs_smoke {name}: card != CPU: {msg}")
+            case = f"W{bits}" + ("+kv8" if kvq else "")
+            quant[case] = max(quant.get(case, 0.0), worst)
     close("archs_smoke", t0)
-    out["archs_smoke"] = archs
+    out["archs_smoke"] = dict(archs, **{f"max {k}": v
+                                        for k, v in quant.items()})
     print(f"[9] archs_smoke: card == CPU on all {len(archs)} archs, largest "
           f"error x max|logit| {json.dumps(archs)}")
+    print(f"[9] archs_smoke: served quantized (W8, W4, W8 + int8 KV), card "
+          f"== CPU: q / s leaves bit-equal, int8 KV entries bit-equal to the "
+          f"CPU's quantizer of the card's floats, the KV quantizer "
+          f"bit-equal on half-way values; largest error x max|logit| over "
+          f"the archs {json.dumps(quant)}")
     out["phase_wall_s"] = sum(walls.values())
     return out
 
@@ -1357,12 +1461,21 @@ def profile_decode(M, cfg, params, cache, tok, pos, steps: int = 3) -> dict:
                 launches_per_step=launches / steps, top_kernels=top)
 
 
-def _leaves(tree):
+def _items(tree, path=()):
+    """(key path, leaf) of a nested dict (tuples of leaves, as the KV
+    cache holds, indexed), in order."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _items(v, (*path, str(k)))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _items(v, (*path, str(i)))
     else:
-        yield tree
+        yield path, tree
+
+
+def _leaves(tree):
+    return (t for _, t in _items(tree))
 
 
 def main() -> int:

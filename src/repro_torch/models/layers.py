@@ -10,9 +10,10 @@ The masked-score value ``NEG_INF``, the float32 softmax and the f32 score
 accumulation are part of the numbers: the same inputs give the JAX
 package's results within float rounding.
 
-Parameter initializers take a ``torch.Generator`` (or a drawer from
-:func:`as_draw`) and draw every per-layer leaf directly at its stacked
-shape (``lead``), so a model is never held twice while it is built.
+Parameter initializers take a drawer (:class:`TorchDraw` or
+:class:`NumpyDraw`, which carries the dtype and device) and draw every
+per-layer leaf directly at its stacked shape (``lead``), so a model is
+never held twice while it is built.
 """
 from __future__ import annotations
 
@@ -88,13 +89,6 @@ class NumpyDraw:
         value = np.asarray(value, np.float32)
         return np.ascontiguousarray(
             np.broadcast_to(value, (*lead, *value.shape)))
-
-
-def as_draw(gen, dtype=torch.float32, device=None):
-    """A drawer from a ``torch.Generator`` (or a drawer, returned as is)."""
-    if isinstance(gen, (TorchDraw, NumpyDraw)):
-        return gen
-    return TorchDraw(gen, dtype, device)
 
 
 # ---------------------------------------------------------------------
@@ -260,11 +254,9 @@ def mlp_apply(params, x, kind: str):
     return mm(h, params["wo"])
 
 
-def mlp_init(gen, d, ff, kind: str, dtype=torch.float32, device=None,
-             lead=()):
-    """``gen``: a ``torch.Generator`` or a drawer (:func:`as_draw`);
-    ``lead``: leading (stacked-layer) dimensions of every leaf."""
-    draw = as_draw(gen, dtype, device)
+def mlp_init(draw, d, ff, kind: str, lead=()):
+    """``draw``: a drawer; ``lead``: leading (stacked-layer) dimensions
+    of every leaf."""
     scale_in = 1.0 / math.sqrt(d)
     scale_out = 1.0 / math.sqrt(ff)
     p = {"wi": draw.normal((*lead, d, ff), scale_in),

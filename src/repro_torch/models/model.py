@@ -146,6 +146,19 @@ def _layer(tree, i: int):
 # Forward (train / prefill)
 # ---------------------------------------------------------------------
 
+def kv_quant_scale(x: torch.Tensor) -> torch.Tensor:
+    """The int8 KV cache's (B, 1, H, 1) scales of a prefill's (B, S, H, D)
+    keys or values: max |x| per (batch, head) over 127."""
+    return L._div(x.abs().amax(dim=(1, 3), keepdim=True).float(),
+                  127) + 1e-8
+
+
+def kv_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x`` in the int8 KV cache: ``x / scale`` rounded half to even,
+    clipped to +-127."""
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
 def _attn_apply(p, cfg: ArchConfig, x, kind: int, positions, cache_kv=None,
                 pos=None, kv_len=None, kv_scale=None):
     """kind: the layer's kind (0 local / 1 global).  ``cache_kv``: the
@@ -176,10 +189,7 @@ def _attn_apply(p, cfg: ArchConfig, x, kind: int, positions, cache_kv=None,
                                       (b,)).to(torch.int32)
             if kv_q:
                 sk, sv = kv_scale
-                kq = torch.clamp(torch.round(k / sk), -127, 127).to(
-                    torch.int8)
-                vq = torch.clamp(torch.round(v / sv), -127, 127).to(
-                    torch.int8)
+                kq, vq = kv_quant(k, sk), kv_quant(v, sv)
             else:
                 kq, vq = k, v
             rows = torch.arange(b, device=ck.device)
@@ -197,14 +207,8 @@ def _attn_apply(p, cfg: ArchConfig, x, kind: int, positions, cache_kv=None,
         else:
             if kv_q:
                 # per-(batch, head) scales fixed at prefill time
-                sk = L._div(k.abs().amax(dim=(1, 3), keepdim=True).float(),
-                            127) + 1e-8
-                sv = L._div(v.abs().amax(dim=(1, 3), keepdim=True).float(),
-                            127) + 1e-8
-                kq = torch.clamp(torch.round(k / sk), -127, 127).to(
-                    torch.int8)
-                vq = torch.clamp(torch.round(v / sv), -127, 127).to(
-                    torch.int8)
+                sk, sv = kv_quant_scale(k), kv_quant_scale(v)
+                kq, vq = kv_quant(k, sk), kv_quant(v, sv)
                 new_scale = (sk, sv)
             else:
                 kq, vq = k, v

@@ -18,21 +18,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import as_draw, mm
-
-# PartitionSpec dims for the dispatch buffer in the JAX package; sharding
-# comes with the distribution slice, so nothing reads it here.
-DISPATCH_SPEC = None
-
+from .layers import mm
 
 def _constrain(x, spec):
     """A sharding constraint in the JAX package; a no-op here."""
     return x
 
 
-def moe_init(gen, d, ff, n_experts, mlp_kind, dtype=torch.float32,
-             device=None, lead=()):
-    draw = as_draw(gen, dtype, device)
+def moe_init(draw, d, ff, n_experts, mlp_kind, lead=()):
     si, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
     p = {
         "router": draw.normal((*lead, d, n_experts), si),
@@ -78,7 +71,7 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float,
     # GShard dispatch: per top-k slot, position-in-expert via cumsum.
     # Row e * cap collects the dropped tokens and is cut off after.
     buf = _constrain(torch.zeros((e * cap + 1, d), dtype=xt.dtype,
-                                 device=dev), DISPATCH_SPEC)
+                                 device=dev), None)
     locs = []
     counts = torch.zeros((e,), dtype=torch.int32, device=dev)
     for slot in range(top_k):

@@ -18,12 +18,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SsmConfig
-from .layers import as_draw, mm
+from .layers import mm
 
 
-def ssm_init(gen, d_model, ssm: SsmConfig, dtype=torch.float32,
-             device=None, lead=()):
-    draw = as_draw(gen, dtype, device)
+def ssm_init(draw, d_model, ssm: SsmConfig, lead=()):
     d_in = ssm.expand * d_model
     nh = d_in // ssm.head_dim
     n = ssm.state_dim

@@ -724,9 +724,29 @@ def test_smoke_model_on_card_equals_cpu(dev, arch):
     smoke = _chip_smoke()
     cfg, cpu, card = _smoke_weights(arch, dev)
     batch = smoke.smoke_batch(cfg, np.random.default_rng(0))
-    msg, _worst = smoke.steps_mismatch(
-        smoke.model_steps(M, cfg, cpu, batch, "cpu"),
-        smoke.model_steps(M, cfg, card, batch, dev), 1e-4)
+    (want, _), (got, _) = smoke.paired_steps(M, cfg, cpu, card, batch, dev)
+    msg, _worst = smoke.steps_mismatch(want, got, 1e-4)
+    assert msg is None, msg
+
+
+@pytest.mark.parametrize("bits,kv_quant", [(8, False), (4, False),
+                                           (8, True)])
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_quantized_smoke_model_on_card_equals_cpu(dev, arch, bits,
+                                                  kv_quant):
+    """W8 / W4 (and the int8 KV cache): the quantized leaves bit-equal,
+    the int8 KV entries bit-equal to the CPU's quantizer of the card's
+    floats, logits and greedy tokens as above."""
+    smoke = _chip_smoke()
+    cfg, cpu, card = _smoke_weights(arch, dev)
+    batch = smoke.smoke_batch(cfg, np.random.default_rng(0))
+    msg, _worst = smoke.quantized_mismatch(M, cfg, cpu, card, batch, dev,
+                                           bits, kv_quant)
+    assert msg is None, msg
+
+
+def test_kv_quantizer_on_card_bit_equal_cpu(dev):
+    msg = _chip_smoke().kv_quant_mismatch(M, dev)
     assert msg is None, msg
 
 
