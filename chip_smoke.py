@@ -82,6 +82,22 @@ Phases (any failure exits nonzero before the last line):
    in float32 and served quantized (W8, W4, W8 with the int8 KV cache:
    the quantized leaves bit-equal, the int8 KV entries bit-equal to the
    CPU's quantizer of the card's own float keys and values).
+10. The rest of serving, on the 36-layer f32 granite-8b drawn on the
+   card again, the lane-scan launch count at 0, each part's wall beside
+   the card's name and power limit: ``disagg_golden``, the disaggregated
+   cells with per-cell backend scopes and a cold full-width granite-8b
+   planner, then ``replay_trace``, must reproduce
+   ``tests/golden/disagg_trace.json``; ``chaos_golden``, the golden's
+   seeded incident (faults at ``backend.scan`` and the planner, poison,
+   scrub, four eviction storms with forced re-plans, handoff pressure,
+   shedding) on a fresh full-width mamba2-130m planner, must reproduce
+   ``tests/golden/chaos_trace.json`` with its chaos record; ``daemon``,
+   ``ServeDaemon`` in scenario mode must give
+   ``run_scenario(disagg=, autoscale=)``'s trace, and a drain under
+   handoff and ``backend.scan`` faults must end with nothing in flight
+   and no exception; ``launcher_daemon``, ``python -m
+   repro_torch.launch.serve --daemon --autoscale --chaos --trace-out F
+   --quick``, whose streamed trace must load.
 
 Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
 flushed before every launch, one pair of CUDA events per launch, the
@@ -90,8 +106,8 @@ median, min and max over many launches (100 for the PIM-tile kernels,
 library call timed in turns.
 
 The second-to-last line is the ``kernels`` JSON record (all five
-kernels; the lane scan's launches are phases 4, 8 and 9's); the last
-is ``{"ok": true, "device": {...}}``.
+kernels; the lane scan's launches are phases 4, 8, 9 and 10's); the
+last is ``{"ok": true, "device": {...}}``.
 """
 import gc
 import hashlib
@@ -1429,6 +1445,198 @@ def serving_with_a_model(dev, card: str) -> dict:
     return out
 
 
+def serving_rest(dev, card: str) -> dict:
+    """Phase 10: the disaggregated cells, the chaos harness, the daemon
+    and the launcher's daemon mode, serving the 36-layer f32 granite-8b
+    drawn on the card from seed 0, with full-width planners.  Every part's wall ends in
+    ``torch.cuda.synchronize()``; the lane-scan launch count is set to 0
+    before the first part and read after the daemon's (the launcher's
+    subprocess counts its own)."""
+    import tempfile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import engine, faults
+    from repro_torch.kernels import lane_scan
+    from repro_torch.models import model as M
+    from repro_torch.serving import chaos, scenarios as scen
+    from repro_torch.serving.daemon import ServeDaemon, TraceWriter
+    from repro_torch.serving.offload import OffloadPlanner
+
+    walls: dict = {}
+    out: dict = {"walls": walls}
+    launches: dict = {}
+
+    def roundtrip(x):
+        return json.loads(json.dumps(x))
+
+    def close(part: str, t0: float, launches0: int | None = None) -> None:
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t0
+        if launches0 is not None:
+            launches[part] = lane_scan.LAUNCHES - launches0
+        print(f"[10] {part}: {walls[part]!r} s wall, "
+              f"{launches.get(part, 0)} lane-scan launches ({card})")
+
+    def golden(name: str) -> dict:
+        return json.loads((ROOT / "tests/golden" / f"{name}.json")
+                          .read_text())
+
+    cfg = ARCHS["granite-8b"]
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    engine.reset_backend_scopes()
+    faults.reset()
+    engine.lane_cache_reset()
+    lane_scan.LAUNCHES = 0
+
+    # -- disagg_golden: the cells at full width, scoped, cold planner ------
+    t0 = time.perf_counter()
+    fixture = golden("disagg_trace")
+    planner = OffloadPlanner(cfg, device=dev)
+    spec = scen.ScenarioSpec.from_record(fixture["scenario"])
+    scopes = (engine.BackendScope(name="prefill"),
+              engine.BackendScope(name="decode"))
+    got = roundtrip(scen.run_scenario(
+        spec, cfg, params, planner, policy=fixture["policy"],
+        fence=fixture["fence"],
+        disagg=scen.DisaggConfig.from_record(fixture["disagg"]["config"]),
+        slo={int(r): s for r, s in fixture["disagg"]["slo"].items()},
+        prefill_scope=scopes[0], decode_scope=scopes[1], device=dev))
+    described = got["disagg"].pop("scopes")
+    check(got == fixture, "disagg_golden: the scoped cells at full width "
+          "did not reproduce tests/golden/disagg_trace.json")
+    check(all(d["rungs"] == ["scan"] and d["breaker"]["open"] == []
+              for d in described.values()),
+          f"disagg_golden: scopes {described}")
+    got = scen.replay_trace(fixture, cfg, params, planner, device=dev)
+    check(roundtrip(got) == fixture,
+          "disagg_golden: replay_trace did not reproduce the golden")
+    close("disagg_golden", t0, 0)
+    out["disagg_golden"] = dict(steps=got["steps"], tokens=got["tokens"],
+                                prefills=got["prefills"],
+                                handoffs=got["disagg"]["handoff"])
+    print(f"[10] disagg_golden: tests/golden/disagg_trace.json reproduced "
+          f"by the scoped cells and by replay_trace through the "
+          f"{cfg.n_layers}-layer granite-8b with a cold full-width planner "
+          f"({json.dumps(out['disagg_golden'])})")
+
+    # -- chaos_golden: the incident, fresh full-width mamba2-130m planner --
+    t0, l0 = time.perf_counter(), lane_scan.LAUNCHES
+    fixture = golden("chaos_trace")
+    engine.lane_cache_reset()
+    faults.reset()
+    spec = scen.make_scenario("chaos", seed=5, slots=4, quick=True)
+    horizon = max(a.step for a in spec.arrivals) + 1
+    timeline = chaos.make_chaos_timeline(5, horizon=max(horizon, 8),
+                                         rungs=["scan"], scheduling=True)
+    got = roundtrip(chaos.run_chaos_scenario(
+        cfg, params, OffloadPlanner(ARCHS["mamba2-130m"], device=dev),
+        scenario=spec, timeline=timeline,
+        disagg=scen.DisaggConfig(prefill_budget=2, handoff_bound=3,
+                                 starvation_age=4, admission_capacity=6),
+        slo=scen.assign_slo(spec, 0.6), device=dev))
+    for key in fixture:
+        check(got.get(key) == fixture[key],
+              f"chaos_golden: {key} differs from tests/golden/"
+              f"chaos_trace.json")
+    check(set(got) == set(fixture), f"chaos_golden: keys {sorted(got)}")
+    close("chaos_golden", t0, l0)
+    check(launches["chaos_golden"] >= 5,
+          f"chaos_golden: {launches['chaos_golden']} lane-scan launches "
+          f"for a cold plan and four storms")
+    rec = got["chaos"]
+    out["chaos_golden"] = dict(events=len(rec["events"]),
+                               injected=rec["injected"],
+                               breaker=rec["breaker"],
+                               backoff_sleeps=rec["backoff_sleeps"],
+                               steps=got["steps"], tokens=got["tokens"])
+    print(f"[10] chaos_golden: tests/golden/chaos_trace.json reproduced, "
+          f"chaos record included ({json.dumps(out['chaos_golden'])})")
+
+    # -- daemon: scenario mode == run_scenario; drain under chaos ---------
+    t0, l0 = time.perf_counter(), lane_scan.LAUNCHES
+    faults.reset()
+    spec = scen.make_scenario("bursty", seed=3, slots=4, quick=True)
+    kw = dict(policy="hysteresis",
+              disagg=scen.DisaggConfig(prefill_budget=2, handoff_bound=3,
+                                       starvation_age=4),
+              slo=scen.assign_slo(spec),
+              autoscale=scen.AutoscaleConfig(min_slots=1))
+    want = scen.run_scenario(spec, cfg, params, planner, device=dev, **kw)
+    daemon = ServeDaemon(cfg, params, planner, scenario=spec, device=dev,
+                         **kw)
+    rep = daemon.run()
+    check(json.dumps(daemon.trace(), sort_keys=True)
+          == json.dumps(want, sort_keys=True),
+          "daemon: scenario mode != run_scenario(disagg=, autoscale=)")
+    inj = faults.FaultInjector()
+    holder = {}
+
+    def on_tick(t, eng):
+        faults.set_tick(t)
+        if t == 4:
+            holder["d"].drain()
+        if t in (5, 7):
+            inj.arm("handoff", count=1)
+        if t == 6:
+            inj.arm("backend.scan", count=1)
+            engine.lane_cache_clear()
+            eng.controller.replan(1, refresh=True)
+
+    drained = ServeDaemon(cfg, params, planner, scenario=spec,
+                          disagg=kw["disagg"], on_tick=on_tick, device=dev)
+    holder["d"] = drained
+    try:
+        with faults.fault_scope(inj), \
+                faults.retry_scope(retries=2, clock=faults.VirtualClock()):
+            drain = drained.run()
+    finally:
+        faults.set_tick(None)
+    acct = drain["accounting"]
+    check(drain["draining"] and acct["in_flight"] == 0
+          and acct["ingested"] == acct["completed"] + acct["shed"]
+          and acct["dropped"] + acct["ingested"] == len(spec.arrivals)
+          and inj.injected >= 3,
+          f"daemon: drain under chaos {drain} (injected {inj.injected})")
+    close("daemon", t0, l0)
+    out["daemon"] = dict(scenario_ticks=rep["ticks"],
+                         autoscale=rep["autoscale"]["limits"],
+                         drain=dict(acct, unhandled=0,
+                                    injected=inj.injected))
+    print(f"[10] daemon: scenario mode == run_scenario(disagg=, autoscale=)"
+          f"; drain under chaos {json.dumps(out['daemon']['drain'])}")
+    out["launches"] = sum(launches.values())
+    out["launches_by_part"] = dict(launches)
+    check(out["launches"] > 0, "phase 10 launched no lane scan")
+    del params, planner, daemon, drained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- launcher_daemon: --daemon --autoscale --chaos --trace-out ---------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.jsonl"
+        text, wall = run_launcher(["--daemon", "--autoscale", "--chaos",
+                                   "--trace-out", str(path), "--quick"])
+        row = re.search(r"^serve/daemon,(.*)$", text, re.M)
+        chaos_row = re.search(r"^serve/chaos,(.*)$", text, re.M)
+        check(row is not None and chaos_row is not None,
+              f"launcher_daemon: no serve/daemon or serve/chaos row:\n{text}")
+        fields = dict(kv.split("=") for kv in row.group(1).split(","))
+        trace = TraceWriter.load(path)
+        check(fields["unhandled"] == "0" and fields["in_flight"] == "0"
+              and int(fields["completed"]) > 0
+              and len(trace["per_tick_batch"]) == int(fields["ticks"])
+              and trace["autoscale"]["limits"],
+              f"launcher_daemon:\n{text}")
+    close("launcher_daemon", t0)
+    out["launcher_daemon"] = dict(wall_s=wall, daemon=fields,
+                                  chaos=chaos_row.group(1))
+    print(f"[10] launcher_daemon: {json.dumps(out['launcher_daemon'])}")
+    out["phase_wall_s"] = sum(walls.values())
+    return out
+
+
 def profile_decode(M, cfg, params, cache, tok, pos, steps: int = 3) -> dict:
     """Device time and kernel launches per decode step, and the five
     kernels with the most device time, from ``torch.profiler`` over
@@ -1877,13 +2085,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     with_model = serving_with_a_model(dev, card)
 
+    # ---- 10. the rest of serving ---------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest = serving_rest(dev, card)
+
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{
         "name": "lane_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lane_scan.cu",
         "replaces": "src/repro/kernels/lane_scan.py:49",
         "launches": (total_launches + serving["launches"]
-                     + with_model["launches"]),
+                     + with_model["launches"] + rest["launches"]),
         "max_abs_err": worst,
         "ms": main_fleet["ms"], "plain_ms": plain_ms,
         "bound_ms": main_fleet["bound_ms"],
@@ -1897,8 +2110,10 @@ def main() -> int:
                          for p in walls},
         "launches_by_phase": {"4": total_launches,
                               "8": serving["launches"],
-                              "9": with_model["launches"]},
-        "serving": serving, "serving_with_a_model": with_model},
+                              "9": with_model["launches"],
+                              "10": rest["launches"]},
+        "serving": serving, "serving_with_a_model": with_model,
+        "serving_rest": rest},
         *pim_entries]}
     print(card)
     print(json.dumps(kernels))

@@ -14,11 +14,21 @@ Every entry point takes a ``device``: by default the card, and a caller
 without one must ask for ``device="cpu"`` (the plain torch resolver).
 Nothing drops to the CPU on its own, and a kernel that fails to build or
 launch raises.
+
+The launches run under a :class:`BackendScope`'s degradation ladder
+(:func:`ladder_rungs`): each rung passes through the ``backend.<rung>``
+fault seam, retries, and steps down on failure, with the scope's circuit
+breaker skipping a rung that failed K resolves in a row.  On one device
+the ladder is ``["scan"]``: ``scan`` names the single-device lane
+resolver (the kernel on the card, the plain version on the CPU).  Its
+failure, an injected fault or a real build or launch error, raises once
+its retries are spent: nothing runs the plain version on a card tensor.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import threading
 from collections import OrderedDict
 from typing import Hashable, Iterable, Sequence
@@ -264,6 +274,157 @@ def lane_cache_verify() -> int:
     return len(bad)
 
 
+# ---------------------------------------------------------------------------
+# Backend scopes and the degradation ladder.
+#
+# A BackendScope holds the requested lane backend and its OWN circuit
+# breaker.  The process keeps one default scope behind the classic
+# configure_lane_backend API; serving cells each carry their own, so a
+# breaker tripped by one cell's faults never changes the other cell's
+# ladder.  The JAX package's backend names are accepted: "pallas" and
+# "auto" resolve to "scan", as there where no Pallas kernel runs.  The
+# lane mesh and threaded multi-device dispatch (its "mesh" and "threaded"
+# rungs) are not ported yet (Queue 1 item 8), so the ladder is ["scan"].
+# ---------------------------------------------------------------------------
+
+_LANE_BACKENDS = ("scan", "pallas", "auto")
+
+
+def _check_backend(name: str | None) -> str | None:
+    if name is None:
+        return None
+    b = str(name).lower()
+    if b not in _LANE_BACKENDS:
+        raise ValueError(f"lane backend must be one of {_LANE_BACKENDS}, "
+                         f"got {name!r}")
+    return b
+
+
+@dataclasses.dataclass
+class BackendScope:
+    """One lane-execution scope: requested backend and its own circuit
+    breaker (``breaker=None`` delegates to the process breaker, which is
+    what the default scope does).  Serving cells activate theirs around
+    their tick work with :class:`backend_scope`."""
+
+    backend: str | None = None
+    breaker: "faults.CircuitBreaker | None" = dataclasses.field(
+        default_factory=faults.CircuitBreaker)
+    name: str = ""
+
+    def __post_init__(self):
+        self.backend = _check_backend(self.backend)
+
+    def scope_breaker(self) -> "faults.CircuitBreaker":
+        return (self.breaker if self.breaker is not None
+                else faults.backend_breaker())
+
+    def describe(self) -> dict:
+        """Trace-exportable view, keyed as the JAX package's: one device,
+        no lane mesh."""
+        return dict(name=self.name, backend=lane_backend(self),
+                    resolved=resolved_lane_backend(self), mesh=None,
+                    devices=1, rungs=ladder_rungs(self),
+                    breaker=self.scope_breaker().info())
+
+
+_DEFAULT_SCOPE = BackendScope(breaker=None, name="default")
+_ACTIVE_SCOPE: BackendScope | None = None
+
+
+def default_backend_scope() -> BackendScope:
+    """The process-default scope (what ``configure_lane_backend`` sets)."""
+    return _DEFAULT_SCOPE
+
+
+def active_backend_scope() -> BackendScope:
+    """The scope lane resolution runs under right now."""
+    return _ACTIVE_SCOPE if _ACTIVE_SCOPE is not None else _DEFAULT_SCOPE
+
+
+class backend_scope:
+    """Context manager: activate ``scope`` (``None`` = the default scope)
+    for every lane resolve in the block, then restore the previous one."""
+
+    def __init__(self, scope: BackendScope | None):
+        self._scope = scope
+
+    def __enter__(self) -> BackendScope:
+        global _ACTIVE_SCOPE
+        self._prev = _ACTIVE_SCOPE
+        _ACTIVE_SCOPE = self._scope
+        return active_backend_scope()
+
+    def __exit__(self, *exc):
+        global _ACTIVE_SCOPE
+        _ACTIVE_SCOPE = self._prev
+        return False
+
+
+def reset_backend_scopes() -> None:
+    """Deactivate any active scope and restore the default scope's
+    backend to its boot state (test hygiene)."""
+    global _ACTIVE_SCOPE
+    _ACTIVE_SCOPE = None
+    _DEFAULT_SCOPE.backend = None
+
+
+def configure_lane_backend(name: str | None) -> str:
+    """Set the default scope's requested backend ("scan" | "pallas" |
+    "auto"; ``None``: the ``REPRO_LANE_BACKEND`` variable, else "scan").
+    Returns the requested backend."""
+    _DEFAULT_SCOPE.backend = _check_backend(name)
+    return lane_backend()
+
+
+def lane_backend(scope: BackendScope | None = None) -> str:
+    """The requested lane backend (scope > environment > "scan")."""
+    scope = active_backend_scope() if scope is None else scope
+    if scope.backend is not None:
+        return scope.backend
+    env = os.environ.get("REPRO_LANE_BACKEND", "").lower()
+    return env if env in _LANE_BACKENDS else "scan"
+
+
+def resolved_lane_backend(scope: BackendScope | None = None) -> str:
+    """The backend lanes run on: always "scan" (no Pallas kernel here)."""
+    return "scan"
+
+
+class lane_backend_scope:
+    """Context manager: request ``name`` on the default scope, then
+    restore the previous request."""
+
+    def __init__(self, name: str | None):
+        self._name = name
+
+    def __enter__(self) -> str:
+        self._prev = _DEFAULT_SCOPE.backend
+        return configure_lane_backend(self._name)
+
+    def __exit__(self, *exc):
+        _DEFAULT_SCOPE.backend = self._prev
+        return False
+
+
+def _ladder_rungs(scope: BackendScope | None = None) -> list[str]:
+    """The degradation ladder for ``scope``, highest rung first.  "scan"
+    is the terminal rung and, until the mesh and threaded rungs are
+    ported, the only one."""
+    # Until then every rung runs the same resolver (``_run_rung`` ignores
+    # its rung), so the walk's skip / degrade branches run only when a
+    # test patches in a second rung.  Porting the mesh must give each
+    # rung its own resolver, or collapse the walk to one retry_call.
+    return ["scan"]
+
+
+def ladder_rungs(scope: BackendScope | None = None) -> list[str]:
+    """Public view of a scope's ladder (default: the active scope's) —
+    what the chaos harness arms fault schedules against."""
+    return _ladder_rungs(active_backend_scope() if scope is None
+                         else scope)
+
+
 def _length_bucket(n: int) -> int:
     """The reference engine's stream-length bucket ({2^k, 3*2^(k-2)},
     >= 16); here it only orders LRU insertion (launches are not padded
@@ -283,6 +444,7 @@ def resolve_lanes(
     keys: Sequence[Hashable | None] | None = None,
     need_issue: bool = True,
     device: "str | torch.device | None" = None,
+    scope: BackendScope | None = None,
 ) -> list[tuple[np.ndarray | None, int]]:
     """Resolve a flat list of (timing config, stream) lanes.
 
@@ -298,9 +460,15 @@ def resolve_lanes(
     ``need_issue=False`` skips the issue arrays (totals only).
 
     The misses go to the resolver one launch per bank count, on
-    ``device`` (default: the card; see :func:`resolve_device`).
+    ``device`` (default: the card; see :func:`resolve_device`), under the
+    degradation ladder of ``scope`` (default: the active scope): a rung
+    that raises is retried through ``faults.retry_call`` at its
+    ``backend.<rung>`` site and then stepped past, counting toward its
+    breaker; lanes a failing rung already stored are not run again.  The
+    terminal rung's failure propagates.
     """
     dev = resolve_device(device)
+    scope = active_backend_scope() if scope is None else scope
     lanes = list(lanes)
     uniq: list[list] = []              # [cyc, stream, ukey]
     lane_of: list[int] = []            # flat lane -> unique lane
@@ -352,30 +520,62 @@ def resolve_lanes(
     # One launch per bank count.  Within it, lanes are ordered by length
     # bucket, so results enter the LRU in the reference engine's slab
     # order and eviction under capacity pressure matches it exactly.
-    groups: dict[int, list[int]] = {}
-    for u in sorted(todo, key=lambda u: _length_bucket(uniq[u][1].shape[0])):
-        groups.setdefault(uniq[u][0].num_banks, []).append(u)
+    order = sorted(todo, key=lambda u: _length_bucket(uniq[u][1].shape[0]))
+    done: set[int] = set()
 
-    for nb, idxs in sorted(groups.items()):
-        cycs, streams, lengths = pack_lanes([(uniq[u][0], uniq[u][1])
-                                             for u in idxs])
-        iss, tot = lane_scan.lane_scan(cycs.to(dev), streams.to(dev),
-                                       lengths.to(dev), nb,
-                                       need_issue=need_issue)
-        tot = tot.cpu().numpy()
-        iss = iss.cpu().numpy() if need_issue else None
-        for row, u in enumerate(idxs):
-            if need_issue:
-                # copy: a view would pin the whole padded slab;
-                # read-only: results are shared between deduped lanes
-                # and the LRU, so mutation must be an error
-                arr = iss[row, : uniq[u][1].shape[0]].copy()
-                arr.setflags(write=False)
-                issues[u] = arr
-            for v in (u, *alias[u]):
-                totals[v] = tot[row]
-                issues[v] = issues[u]
-                _lane_cache_put(uniq[v][2], int(tot[row]), issues[u])
+    def _run_rung(_rung: str) -> None:
+        # Every rung runs the one lane resolver on ``dev``.
+        groups: dict[int, list[int]] = {}
+        for u in order:
+            if u not in done:
+                groups.setdefault(uniq[u][0].num_banks, []).append(u)
+        for nb, idxs in sorted(groups.items()):
+            cycs, streams, lengths = pack_lanes([(uniq[u][0], uniq[u][1])
+                                                 for u in idxs])
+            iss, tot = lane_scan.lane_scan(cycs.to(dev), streams.to(dev),
+                                           lengths.to(dev), nb,
+                                           need_issue=need_issue)
+            tot = tot.cpu().numpy()
+            iss = iss.cpu().numpy() if need_issue else None
+            for row, u in enumerate(idxs):
+                if need_issue:
+                    # copy: a view would pin the whole padded slab;
+                    # read-only: results are shared between deduped
+                    # lanes and the LRU, so mutation must be an error
+                    arr = iss[row, : uniq[u][1].shape[0]].copy()
+                    arr.setflags(write=False)
+                    issues[u] = arr
+                for v in (u, *alias[u]):
+                    totals[v] = tot[row]
+                    issues[v] = issues[u]
+                    _lane_cache_put(uniq[v][2], int(tot[row]), issues[u])
+                done.add(u)
+
+    # Walk the ladder: the highest closed rung first, transient faults
+    # absorbed by retries, a persistent failure stepping down (and
+    # counting toward the rung's breaker).  The terminal rung is never
+    # skipped, and its failure propagates.
+    if todo:
+        breaker = scope.scope_breaker()
+        rungs = _ladder_rungs(scope)
+        for i, rung in enumerate(rungs):
+            site = "backend." + rung
+            terminal = i == len(rungs) - 1
+            if not terminal and breaker.tripped(site):
+                faults.record_event(site, "skip", "circuit open")
+                continue
+            try:
+                faults.retry_call(lambda: _run_rung(rung), site)
+                breaker.record_success(site)
+                break
+            except Exception as e:  # noqa: BLE001 - the ladder absorbs it
+                breaker.record_failure(site)
+                if terminal:
+                    raise
+                faults.record_event(
+                    site, "degrade",
+                    f"stepping down to backend.{rungs[i + 1]}: "
+                    f"{type(e).__name__}: {e}")
 
     return [(issues[lane_of[i]], int(totals[lane_of[i]]))
             for i in range(len(lane_of))]
@@ -386,6 +586,7 @@ def resolve_fleet(
     keys: Sequence[Sequence[Hashable | None]] | None = None,
     need_issue: bool = True,
     device: "str | torch.device | None" = None,
+    scope: BackendScope | None = None,
 ) -> list[FleetResult]:
     """Resolve many (timing config, per-channel streams) points at once:
     the *(point x channel)* fleet flattened into lanes, one
@@ -402,7 +603,7 @@ def resolve_fleet(
 
     resolved = resolve_lanes(flat, keys=flat_keys if keys is not None
                              else None, need_issue=need_issue,
-                             device=device)
+                             device=device, scope=scope)
     out = [FleetResult(issue=[], totals=np.zeros(0, np.int32))
            for _ in points]
     per_point: list[list[int]] = [[] for _ in points]

@@ -53,6 +53,17 @@ class Request:
     done: bool = False
 
 
+def prefill_one(cfg: ArchConfig, params, req: Request, max_seq: int,
+                device: torch.device):
+    """Prefill one request into a fresh one-slot cache of ``max_seq``
+    positions; returns ``(last logits (1, vocab), cache)``."""
+    assert len(req.prompt) < max_seq
+    prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                             device=device)[None]
+    one = M.init_cache(cfg, 1, max_seq, torch.float32, device=device)
+    return M.prefill(cfg, params, {"tokens": prompt}, one)
+
+
 def merge_slot(cache: dict, one: dict, slot: int) -> None:
     """Copy a one-slot cache (every position, zeros past the prompt)
     into row ``slot`` of a batched cache, in place."""
@@ -63,12 +74,16 @@ def merge_slot(cache: dict, one: dict, slot: int) -> None:
             dst[:, slot:slot + 1] = src
 
 
-class ServingEngine:
-    def __init__(self, cfg: ArchConfig, params, slots: int = 4,
-                 max_seq: int = 256, planner: Optional[OffloadPlanner]
-                 = None, step_telemetry: bool = False,
-                 controller: Optional[OffloadController] = None,
-                 spec_decode=None, device=None):
+class DecodeLoop:
+    """The batched decode shared by :class:`ServingEngine` and the
+    disaggregated decode cell (``serving/cells.py``): one decode step (or
+    speculative round) over every active slot, the slots' advance and
+    completion, and the per-step controller and planner telemetry."""
+
+    def __init__(self, cfg: ArchConfig, params, slots: int, max_seq: int,
+                 planner: Optional[OffloadPlanner],
+                 controller: Optional[OffloadController],
+                 step_telemetry: bool, spec_decode, device):
         assert cfg.input_mode == "tokens", "engine serves token models"
         self.device = resolve_device(device)
         self.cfg, self.params = cfg, params
@@ -78,7 +93,6 @@ class ServingEngine:
                                   device=self.device)
         self.active: list[Optional[Request]] = [None] * slots
         self.pos = np.zeros(slots, dtype=np.int32)
-        self.waiting: list[Request] = []
         # Adaptive offload control: the controller sees every decode
         # step's live batch size and runs its policy; its planner doubles
         # as the telemetry planner unless one was passed explicitly.
@@ -86,12 +100,11 @@ class ServingEngine:
         if planner is None and controller is not None:
             planner = controller.planner
         self.planner = planner
-        self.stats = dict(steps=0, tokens=0, prefills=0)
+        self.stats = dict(steps=0, tokens=0)
         self.batch_occupancy: dict[int, int] = {}
         self.step_batches: list[int] = []      # trace: batch per step
-        # Per-request scheduling record: serve tick of admission
-        # (= prefill) and of completion.
-        self.ticks = 0                         # step() calls, idle included
+        # Per-request scheduling record: serve tick of admission and of
+        # completion.
         self.admit_ticks: dict[int, int] = {}
         self.completions: dict[int, int] = {}
         # Per-step PIM telemetry: one planner query per decode step at
@@ -106,34 +119,6 @@ class ServingEngine:
         self.spec_accepted: dict[int, int] = {}
         self.spec_advance: list[int] = []
         self.spec_substeps: list[int] = []
-
-    # ------------------------------------------------------------------
-    def submit(self, req: Request):
-        self.waiting.append(req)
-
-    def _admit(self, tick: int):
-        for slot in range(self.slots):
-            if self.active[slot] is None and self.waiting:
-                req = self.waiting.pop(0)
-                self._prefill(slot, req)
-                self.active[slot] = req
-                self.admit_ticks[req.rid] = tick
-
-    def _prefill(self, slot: int, req: Request):
-        """Single-slot prefill, then the whole one-slot cache (zeros past
-        the prompt) copied into the batched cache at ``slot``."""
-        s = len(req.prompt)
-        assert s < self.max_seq
-        prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
-                                 device=self.device)[None]
-        one = M.init_cache(self.cfg, 1, self.max_seq, torch.float32,
-                           device=self.device)
-        logits, one = M.prefill(self.cfg, self.params, {"tokens": prompt},
-                                one)
-        merge_slot(self.cache, one, slot)
-        self.pos[slot] = s
-        req.out.append(int(torch.argmax(logits[0])))
-        self.stats["prefills"] += 1
 
     def _decode(self, tokens: np.ndarray) -> np.ndarray:
         """One batched decode step over every slot at its own position;
@@ -155,15 +140,12 @@ class ServingEngine:
             self.active[i] = None
             self.completions[req.rid] = tick
 
-    # ------------------------------------------------------------------
-    def step(self):
-        """One batched decode step over all active slots."""
-        tick = self.ticks
-        self.ticks += 1          # idle ticks advance too (tick-aligned)
-        self._admit(tick)
+    def _decode_active(self, tick: int) -> int:
+        """One decode step (or speculative round) over the active slots;
+        returns the batch size (0: idle, nothing recorded)."""
         act = [i for i, r in enumerate(self.active) if r is not None]
         if not act:
-            return False
+            return 0
         self.batch_occupancy[len(act)] = \
             self.batch_occupancy.get(len(act), 0) + 1
         if self.spec_decode is not None:
@@ -184,7 +166,7 @@ class ServingEngine:
                                            batch=len(act),
                                            speedup=tel["speedup"]))
         self.stats["steps"] += 1
-        return True
+        return len(act)
 
     def _spec_round(self, tick: int, act: list[int]) -> None:
         """One speculative round per active slot, as batched sub-steps:
@@ -234,6 +216,63 @@ class ServingEngine:
                     substeps=sum(self.spec_substeps),
                     per_tick_advance=list(self.spec_advance))
 
+    def pim_telemetry(self) -> dict:
+        """The planner's offload telemetry for this run's occupancy."""
+        planner = self.planner
+        tel = planner.decode_speedup(batch=max(1, self.slots))
+        batches = sorted(self.batch_occupancy) or [max(1, self.slots)]
+        tel["per_batch_speedup"] = {
+            b: planner.decode_speedup(batch=b)["speedup"] for b in batches}
+        if self.batch_occupancy:
+            tel["occupancy_weighted"] = \
+                planner.occupancy_weighted_speedup(self.batch_occupancy)
+        if self.step_speedups:
+            tel["per_step"] = list(self.step_speedups)
+        return tel
+
+
+class ServingEngine(DecodeLoop):
+    def __init__(self, cfg: ArchConfig, params, slots: int = 4,
+                 max_seq: int = 256, planner: Optional[OffloadPlanner]
+                 = None, step_telemetry: bool = False,
+                 controller: Optional[OffloadController] = None,
+                 spec_decode=None, device=None):
+        super().__init__(cfg, params, slots, max_seq, planner, controller,
+                         step_telemetry, spec_decode, device)
+        self.waiting: list[Request] = []
+        self.stats["prefills"] = 0
+        self.ticks = 0                         # step() calls, idle included
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        self.waiting.append(req)
+
+    def _admit(self, tick: int):
+        for slot in range(self.slots):
+            if self.active[slot] is None and self.waiting:
+                req = self.waiting.pop(0)
+                self._prefill(slot, req)
+                self.active[slot] = req
+                self.admit_ticks[req.rid] = tick
+
+    def _prefill(self, slot: int, req: Request):
+        """Single-slot prefill, then the whole one-slot cache (zeros past
+        the prompt) copied into the batched cache at ``slot``."""
+        logits, one = prefill_one(self.cfg, self.params, req, self.max_seq,
+                                  self.device)
+        merge_slot(self.cache, one, slot)
+        self.pos[slot] = len(req.prompt)
+        req.out.append(int(torch.argmax(logits[0])))
+        self.stats["prefills"] += 1
+
+    # ------------------------------------------------------------------
+    def step(self):
+        """One batched decode step over all active slots."""
+        tick = self.ticks
+        self.ticks += 1          # idle ticks advance too (tick-aligned)
+        self._admit(tick)
+        return self._decode_active(tick) > 0
+
     def run(self, max_steps: int = 1000) -> dict:
         while (any(self.active) or self.waiting) and max_steps > 0:
             self.step()
@@ -251,18 +290,7 @@ class ServingEngine:
         out["tokens_per_step"] = (self.stats["tokens"] / self.stats["steps"]
                                   if self.stats["steps"] else 0.0)
         if self.planner is not None:
-            tel = self.planner.decode_speedup(batch=max(1, self.slots))
-            batches = sorted(self.batch_occupancy) or [max(1, self.slots)]
-            tel["per_batch_speedup"] = {
-                b: self.planner.decode_speedup(batch=b)["speedup"]
-                for b in batches}
-            if self.batch_occupancy:
-                tel["occupancy_weighted"] = \
-                    self.planner.occupancy_weighted_speedup(
-                        self.batch_occupancy)
-            if self.step_speedups:
-                tel["per_step"] = list(self.step_speedups)
-            out["pim_telemetry"] = tel
+            out["pim_telemetry"] = self.pim_telemetry()
         if self.controller is not None:
             out["policy"] = self.controller.report()
         return out

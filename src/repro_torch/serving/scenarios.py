@@ -37,9 +37,11 @@ a recorded trace's occupancy (``tests/golden/serve_trace.json``,
 ``spec_decode_trace.json``) from its embedded schedule alone.
 
 ``run_scenario`` / ``replay_trace`` serve a scenario with a model
-through the monolithic ``ServingEngine``; the disaggregated cells, the
-autoscaler and the lane mesh are not ported and raise
-``NotImplementedError``.
+through the monolithic ``ServingEngine`` or the disaggregated cells
+(``serving/cells.py``), optionally autoscaled and with per-cell backend
+scopes, and emit a replayable trace; the serving goldens under
+``tests/golden/`` pin one trace of each engine shape.  The lane mesh is
+not ported (Queue 1 item 8) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -794,14 +796,8 @@ def replay_batches(trace: dict) -> list[int]:
 
 
 # ---------------------------------------------------------------------
-# End-to-end: drive the real ServingEngine and emit a replayable trace
+# End-to-end: drive the real engine and emit a replayable trace
 # ---------------------------------------------------------------------
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({item} of the port's "
-        f"queue); only the monolithic engine serves scenarios here")
-
 
 def run_scenario(scenario: ScenarioSpec, cfg, params, planner,
                  policy: str = "per-step", fence: bool = True,
@@ -821,31 +817,27 @@ def run_scenario(scenario: ScenarioSpec, cfg, params, planner,
     model token values, so a recorded golden replays byte-exactly
     through any model of the right vocabulary.
 
+    ``disagg`` — ``True`` (mirror config) or a :class:`DisaggConfig`:
+    the disaggregated prefill/decode cell pair (``serving/cells.py``)
+    serves the scenario instead of the monolithic engine, with optional
+    per-request SLO classes in ``slo`` (rid → class, see
+    :func:`assign_slo`); the trace gains a ``"disagg"`` key.
     ``spec_decode`` serves the scenario speculatively (the trace gains a
-    ``"spec_decode"`` key); ``on_tick`` is called as ``fn(t, engine)`` at
-    the top of every serve tick.  ``device`` is the model's (default:
-    the card).  The disaggregated cells (``disagg``; ``slo`` classes
-    only matter there), the autoscaler, per-cell backend scopes and the
-    lane mesh are not ported: asking for one raises
-    ``NotImplementedError``.
+    ``"spec_decode"`` key).  ``autoscale`` (requires ``disagg``): the
+    decode cell's admission limit follows the grow/shrink rule through
+    ``serving/daemon.py``'s ``AutoscaleController``; the trace gains an
+    ``"autoscale"`` key.  ``prefill_scope`` / ``decode_scope`` (require
+    ``disagg``): each cell resolves lanes under its own
+    :class:`~repro_torch.core.engine.BackendScope`.  ``on_tick`` is
+    called as ``fn(t, engine)`` at the top of every serve tick (the chaos
+    harness fires its timeline there).  ``device`` is the model's
+    (default: the card).  The lane mesh (``mesh``) is not ported and
+    raises ``NotImplementedError``.
     """
     if mesh is not None:
-        raise _not_ported("the lane mesh (mesh=)", "Queue 1 item 8")
-    if disagg:
-        raise _not_ported("disaggregated serving (disagg=)",
-                          "Queue 1 item 6")
-    if autoscale is not None:
-        raise _not_ported("autoscaling (autoscale=)", "Queue 1 item 6")
-    if prefill_scope is not None or decode_scope is not None:
-        raise _not_ported("per-cell backend scopes", "Queue 1 item 6")
-    return _run_scenario(scenario, cfg, params, planner, policy, fence,
-                         max_seq, policy_kw, on_tick=on_tick,
-                         spec_decode=spec_decode, device=device)
-
-
-def _run_scenario(scenario, cfg, params, planner, policy, fence,
-                  max_seq, policy_kw, on_tick=None, spec_decode=None,
-                  device=None) -> dict:
+        raise NotImplementedError(
+            "the lane mesh (mesh=) is not ported to repro_torch yet "
+            "(Queue 1 item 8 of the port's queue)")
     from .engine import Request, ServingEngine
     from .policy import OffloadController
 
@@ -855,9 +847,31 @@ def _run_scenario(scenario, cfg, params, planner, policy, fence,
         max_seq = max((a.prompt_len + a.max_new
                        for a in scenario.arrivals), default=16)
         max_seq = max(64, 2 * max_seq)
-    eng = ServingEngine(cfg, params, slots=scenario.slots, max_seq=max_seq,
-                        controller=controller, spec_decode=spec_decode,
-                        device=device)
+    slo = slo or {}
+    if disagg:
+        from .cells import DisaggServingEngine
+        dcfg = disagg if isinstance(disagg, DisaggConfig) \
+            else DisaggConfig.mirror()
+        eng = DisaggServingEngine(cfg, params, slots=scenario.slots,
+                                  max_seq=max_seq, disagg=dcfg,
+                                  controller=controller,
+                                  spec_decode=spec_decode,
+                                  prefill_scope=prefill_scope,
+                                  decode_scope=decode_scope, device=device)
+    else:
+        if autoscale is not None:
+            raise ValueError("autoscale requires disagg serving "
+                             "(the decode cell owns the slot limit)")
+        if prefill_scope is not None or decode_scope is not None:
+            raise ValueError("per-cell backend scopes require disagg "
+                             "serving (the cells own scope activation)")
+        eng = ServingEngine(cfg, params, slots=scenario.slots,
+                            max_seq=max_seq, controller=controller,
+                            spec_decode=spec_decode, device=device)
+    scaler = None
+    if autoscale is not None:
+        from .daemon import AutoscaleController
+        scaler = AutoscaleController(autoscale, eng)
     if spec_decode is not None:
         # Keep the hot small-shape draft lanes pinned at the MRU end of
         # the lane LRU for the whole run.
@@ -878,23 +892,36 @@ def _run_scenario(scenario, cfg, params, planner, policy, fence,
         if spec_decode is not None:
             planner.touch_draft(fence=fence)
         while i < len(pending) and pending[i].step <= t:
-            eng.submit(reqs[pending[i].rid])
+            rid = pending[i].rid
+            if disagg:
+                eng.submit(reqs[rid], slo=slo.get(rid, SLO_LATENCY))
+            else:
+                eng.submit(reqs[rid])
             i += 1
         stepped = eng.step()
+        if scaler is not None:
+            scaler.observe(t)
         per_tick.append(eng.step_batches[-1] if stepped else 0)
         t += 1
         if t > 100_000:
             step_of = {a.rid: a.step for a in scenario.arrivals}
-            queued = [r.rid for r in eng.waiting]
+            if disagg:
+                queued = eng.queued_rids()
+                queues = dict(waiting=len(eng.prefill_cell.queue),
+                              handoff=len(eng.handoff),
+                              pending=len(pending) - i)
+            else:
+                queued = [r.rid for r in eng.waiting]
+                queues = dict(waiting=len(eng.waiting),
+                              pending=len(pending) - i)
             raise ScenarioDrainError(
-                scenario.name, 100_000,
-                queues=dict(waiting=len(eng.waiting),
-                            pending=len(pending) - i),
+                scenario.name, 100_000, queues=queues,
                 oldest_age=(t - min(step_of[r] for r in queued)
                             if queued else None),
                 last_batch=[r.rid for r in eng.active if r is not None])
     stats = eng.summary()
-    assert all(r.done for r in reqs.values())
+    shed = getattr(eng, "shed", {})
+    assert all(r.done or r.rid in shed for r in reqs.values())
     trace = dict(
         scenario=scenario.to_record(),
         policy=controller.policy.name,
@@ -907,6 +934,10 @@ def _run_scenario(scenario, cfg, params, planner, policy, fence,
         controller=controller.report(),
         per_step=[r.to_record() for r in controller.trace],
     )
+    if disagg:
+        trace["disagg"] = stats["disagg"]
+    if scaler is not None:
+        trace["autoscale"] = scaler.report()
     if spec_decode is not None:
         trace["spec_decode"] = dict(config=spec_decode.to_record(),
                                     **eng.spec_report())
@@ -917,22 +948,28 @@ def replay_trace(trace: dict, cfg, params, planner, mesh=None,
                  device=None) -> dict:
     """Re-serve a recorded trace end to end and return the fresh record.
 
-    The scenario schedule, policy, fence mode and speculative config are
-    taken from the trace itself, so a replay is byte-comparable to the
-    recording (``tests/golden/serve_trace.json``,
-    ``spec_decode_trace.json``).  Traces recorded through the
-    disaggregated cells or the autoscaler raise ``NotImplementedError``.
+    The scenario schedule, policy, fence mode, speculative config, and —
+    for a trace recorded through the disaggregated cells or the
+    autoscaler — the ``DisaggConfig``, SLO assignment and
+    ``AutoscaleConfig`` are taken from the trace itself, so a replay is
+    byte-comparable to the recording (the serving goldens under
+    ``tests/golden/``).
     """
-    if "disagg" in trace:
-        raise _not_ported("replaying a disaggregated trace",
-                          "Queue 1 item 6")
-    if "autoscale" in trace:
-        raise _not_ported("replaying an autoscaled trace", "Queue 1 item 6")
+    disagg: "bool | DisaggConfig" = False
+    slo = None
     spec_decode = None
+    autoscale = None
+    if "disagg" in trace:
+        disagg = DisaggConfig.from_record(trace["disagg"]["config"])
+        slo = {int(r): s for r, s in trace["disagg"]["slo"].items()}
     if "spec_decode" in trace:
         spec_decode = SpecDecodeConfig.from_record(
             trace["spec_decode"]["config"])
+    if "autoscale" in trace:
+        autoscale = AutoscaleConfig.from_record(
+            trace["autoscale"]["config"])
     return run_scenario(ScenarioSpec.from_record(trace["scenario"]),
                         cfg, params, planner, policy=trace["policy"],
-                        fence=trace["fence"], mesh=mesh,
-                        spec_decode=spec_decode, device=device)
+                        fence=trace["fence"], mesh=mesh, disagg=disagg,
+                        slo=slo, spec_decode=spec_decode,
+                        autoscale=autoscale, device=device)

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs import ARCHS, granite_8b, smoke_config
 from repro_torch.core import commands as C
-from repro_torch.core import engine
+from repro_torch.core import engine, faults
 from repro_torch.core.engine_ref import RefEngine
 from repro_torch.core.pimsim import PimSimulator
 from repro_torch.core.timing import (DEFAULT_SYSTEM, LpddrTimings, PimSpec,
@@ -33,7 +33,11 @@ from repro_torch.pimkernel.executor import (FunctionalGemv, GemvRequest,
 from repro_torch.pimkernel.tileconfig import ALL_DTYPES, PimDType
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.offload import OffloadPlanner
-from repro_torch.serving.scenarios import replay_trace, run_policy_over_trace
+from repro_torch.serving.chaos import make_chaos_timeline, run_chaos_scenario
+from repro_torch.serving.scenarios import (DisaggConfig, ScenarioSpec,
+                                           assign_slo, make_scenario,
+                                           replay_trace, run_policy_over_trace,
+                                           run_scenario)
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -766,7 +770,8 @@ def test_engine_streams_on_card_equal_cpu(dev):
     assert streams[0] == streams[1]
 
 
-@pytest.mark.parametrize("name", ["serve_trace", "spec_decode_trace"])
+@pytest.mark.parametrize("name", ["serve_trace", "spec_decode_trace",
+                                  "disagg_trace"])
 def test_replay_golden_on_card_with_a_cold_planner(dev, name):
     cfg = smoke_config(ARCHS["granite-8b"])
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -777,6 +782,56 @@ def test_replay_golden_on_card_with_a_cold_planner(dev, name):
                        OffloadPlanner(ARCHS["granite-8b"], device=dev),
                        device=dev)
     assert lane_scan.LAUNCHES > before
+    assert json.loads(json.dumps(got)) == fixture
+
+
+def test_disagg_golden_through_scoped_cells_on_card(dev):
+    """``chip_smoke.py`` phase 10 ``disagg_golden``: the cells, each under
+    its own backend scope, with a cold full-width planner, reproduce
+    ``disagg_trace.json`` (the smoke model: the trace holds no token)."""
+    cfg = smoke_config(ARCHS["granite-8b"])
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    fixture = json.loads((GOLDEN / "disagg_trace.json").read_text())
+    before = lane_scan.LAUNCHES
+    got = run_scenario(
+        ScenarioSpec.from_record(fixture["scenario"]), cfg, params,
+        OffloadPlanner(ARCHS["granite-8b"], device=dev),
+        policy=fixture["policy"], fence=fixture["fence"],
+        disagg=DisaggConfig.from_record(fixture["disagg"]["config"]),
+        slo={int(r): s for r, s in fixture["disagg"]["slo"].items()},
+        prefill_scope=engine.BackendScope(name="prefill"),
+        decode_scope=engine.BackendScope(name="decode"), device=dev)
+    assert lane_scan.LAUNCHES > before
+    got = json.loads(json.dumps(got))
+    scopes = got["disagg"].pop("scopes")
+    assert got == fixture
+    assert [s["rungs"] for s in scopes.values()] == [["scan"], ["scan"]]
+
+
+def test_chaos_golden_on_card_with_a_fresh_planner(dev):
+    """``chip_smoke.py`` phase 10 ``chaos_golden``: the golden's incident
+    on a fresh full-width mamba2-130m planner, the chaos record
+    included; the cold plan and the four storms go through the kernel."""
+    cfg = smoke_config(ARCHS["granite-8b"])
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    fixture = json.loads((GOLDEN / "chaos_trace.json").read_text())
+    spec = make_scenario("chaos", seed=5, slots=4, quick=True)
+    horizon = max(a.step for a in spec.arrivals) + 1
+    before = lane_scan.LAUNCHES
+    try:
+        got = run_chaos_scenario(
+            cfg, params, OffloadPlanner(ARCHS["mamba2-130m"], device=dev),
+            scenario=spec,
+            timeline=make_chaos_timeline(5, horizon=max(horizon, 8),
+                                         rungs=["scan"], scheduling=True),
+            disagg=DisaggConfig(prefill_budget=2, handoff_bound=3,
+                                starvation_age=4, admission_capacity=6),
+            slo=assign_slo(spec, 0.6), device=dev)
+    finally:
+        faults.reset()
+    assert lane_scan.LAUNCHES - before >= 5
     assert json.loads(json.dumps(got)) == fixture
 
 

@@ -18,8 +18,9 @@ where the JAX package degrades on every exception.
 Serving with a model: the port's ``ServingEngine`` on the smoke
 granite-8b (weights from the JAX package's ``init_params``) gives the
 JAX engine's token streams and ``summary()``, vanilla and speculative;
-the port's ``replay_trace`` reproduces ``serve_trace.json`` and
-``spec_decode_trace.json`` exactly through a full-width port planner
+the port's ``replay_trace`` reproduces ``serve_trace.json``,
+``spec_decode_trace.json`` and ``disagg_trace.json`` (the disaggregated
+cells) exactly through a full-width port planner
 whose lane LRU holds the JAX package's resolved lanes
 (``lane_cache_import``), so no lane is resolved on the CPU; the serve
 launcher runs both modes and warm-starts from its cache directory.
@@ -538,7 +539,8 @@ def test_engine_streams_and_summary_equal(smoke_model, speculative):
         runs[0]["spec"]["rounds"] == 0
 
 
-@pytest.mark.parametrize("name", ["serve_trace", "spec_decode_trace"])
+@pytest.mark.parametrize("name", ["serve_trace", "spec_decode_trace",
+                                  "disagg_trace"])
 def test_replay_golden_through_the_port_model(name, smoke_model,
                                               full_width_plan):
     _rcfg, cfg, _rparams, params = smoke_model
@@ -587,19 +589,21 @@ def test_launcher_modes_and_warm_start(full_width_plan, tmp_path, capsys,
 
 
 def test_unported_serving_modes_raise(smoke_model):
+    """The lane mesh is the one serving mode not ported (Queue 1 item 8):
+    ``run_scenario``, ``replay_trace`` and the launcher refuse it before
+    any planning."""
     _rcfg, cfg, _rparams, params = smoke_model
     planner = StubPlanner([])
     spec = scen.make_scenario("bursty", seed=0, quick=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    for kw in (dict(), dict(disagg=True),
+               dict(disagg=scen.DisaggConfig(),
+                    autoscale=scen.AutoscaleConfig())):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            scen.run_scenario(spec, cfg, params, planner, device="cpu",
+                              mesh=2, **kw)
+    with pytest.raises(NotImplementedError, match="item 8"):
         scen.replay_trace(golden("disagg_trace"), cfg, params, planner,
-                          device="cpu")
-    for kw, item in ((dict(disagg=True), "item 6"),
-                     (dict(disagg=scen.DisaggConfig()), "item 6"),
-                     (dict(autoscale=scen.AutoscaleConfig()), "item 6"),
-                     (dict(prefill_scope=object()), "item 6"),
-                     (dict(mesh=2), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            scen.run_scenario(spec, cfg, params, planner, device="cpu", **kw)
+                          mesh=2, device="cpu")
     assert planner.plans == 0
     with pytest.raises(SystemExit):
-        launcher.main(["--disagg", "--device", "cpu"])
+        launcher.main(["--mesh", "2", "--device", "cpu"])
