@@ -106,12 +106,13 @@ median, min and max over many launches (100 for the PIM-tile kernels,
 library call timed in turns.
 
 The second-to-last line is the ``kernels`` JSON record (all five
-kernels; the lane scan's launches are phases 4, 8, 9 and 10's); the
-last is ``{"ok": true, "device": {...}}``.
+kernels; the lane scan's launches are phases 4 and 8-11's); the last is
+``{"ok": true, "device": {...}}``.
 """
 import gc
 import hashlib
 import json
+import math
 import os
 import pathlib
 import re
@@ -270,6 +271,100 @@ def logits_mismatch(fixture_steps: list, steps: list, rel_tol: float
             return f"step {s}: greedy tokens {got} != {rec['tokens']}", worst
     if len(steps) != len(fixture_steps):
         return f"{len(steps)} steps != {len(fixture_steps)}", worst
+    return None, worst
+
+
+def train_state_records(named: list, k: int = 64) -> dict:
+    """For each ``(name, array)`` leaf of params, m and v: its float64
+    sum, sum of |x|, max |x| and ``k`` strided entries."""
+    out = {}
+    for name, arr in named:
+        flat = np.asarray(arr, np.float32).reshape(-1)
+        idx = sample_index(flat.size, k)
+        mag = np.abs(flat)
+        out[name] = dict(sum=float(flat.sum(dtype=np.float64)),
+                         abs_sum=float(mag.sum(dtype=np.float64)),
+                         max_abs=float(mag.max()), idx=idx.tolist(),
+                         val=[float(v) for v in flat[idx]])
+    return out
+
+
+def port_train_run(fx: dict, cfg, params, dev) -> dict:
+    """The procedure of ``tests/golden/torch_train_steps.json`` on the
+    port: a ``Trainer`` on ``fx["train"]``'s settings from ``params`` (a
+    tree of tensors on ``dev``, updated in place) takes ``fx["steps"]``
+    steps on ``SyntheticLM(vocab, seed=0)`` batches.  Returns each
+    step's loss and lr and :func:`train_state_records` of params, m and
+    v after the last step (checkpoint leaf names)."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.training.grad_compress import CompressionConfig
+    from repro_torch.training.optimizer import (cosine_schedule,
+                                                tree_flatten_with_path)
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    tr = dict(fx["train"])
+    tcfg = TrainConfig(compression=CompressionConfig(tr.pop("compression")),
+                       ckpt_every=1 << 30, **tr)
+    trainer = Trainer(cfg, tcfg, params=params)
+    src = SyntheticLM(cfg.vocab, seed=0)
+
+    def batches():
+        for step in range(fx["steps"]):
+            yield to_device(src.batch(step, fx["batch"], fx["seq"]), dev)
+
+    hist = trainer.train(batches(), fx["steps"], log_every=1 << 30)
+    named = [("__".join(path), leaf.cpu().numpy())
+             for path, leaf in tree_flatten_with_path(
+                 (trainer.params, trainer.opt)) if path[-1] != ".step"]
+    lrs = [float(cosine_schedule(s, tcfg.lr, tcfg.warmup,
+                                 tcfg.total_steps))
+           for s in range(fx["steps"])]
+    return dict(losses=[h["loss"] for h in hist], lrs=lrs,
+                leaves=train_state_records(named))
+
+
+def train_mismatch(fx: dict, got: dict) -> tuple[str | None, dict]:
+    """Why a run's records (:func:`port_train_run`) do not hold to the
+    fixture's within its tolerances ``fx["tol"]``, or None; and the
+    largest distance of each kind as a share of its limit.
+
+    Losses within ``loss_rel`` of the fixture's; every leaf's sum and sum
+    of |x| within ``sum_rel`` x its sum of |x|; sampled params within
+    ``param_lrs`` x the sum of the steps' lrs (Adam moves an entry whose
+    grad is at float32 noise level by up to 2 lr a step, either way);
+    sampled m and v within ``moment_rel`` x the leaf's max |x|."""
+    tol, want = fx["tol"], fx["records"]
+    worst = dict.fromkeys(("loss", "sum", "param", "moment"), 0.0)
+
+    def over(kind, err, lim):
+        worst[kind] = max(worst[kind], float(np.max(err / lim)))
+        return not bool(np.all(err <= lim))
+
+    for s, (w, g) in enumerate(zip(want["losses"], got["losses"])):
+        if over("loss", abs(g - w), tol["loss_rel"] * abs(w)):
+            return f"step {s + 1} loss {g!r} vs {w!r}", worst
+    if len(got["losses"]) != len(want["losses"]):
+        return f"{len(got['losses'])} steps", worst
+    if not np.allclose(got["lrs"], want["lrs"], rtol=1e-6, atol=0):
+        return f"lrs {got['lrs']} vs {want['lrs']}", worst
+    if sorted(got["leaves"]) != sorted(want["leaves"]):
+        return "leaf names differ", worst
+    lr_sum = float(sum(want["lrs"]))
+    for name, w in want["leaves"].items():
+        g = got["leaves"][name]
+        lim = tol["sum_rel"] * w["abs_sum"]
+        if (over("sum", abs(g["sum"] - w["sum"]), lim)
+                or over("sum", abs(g["abs_sum"] - w["abs_sum"]), lim)):
+            return (f"{name}: sum {g['sum']!r} / {g['abs_sum']!r} vs "
+                    f"{w['sum']!r} / {w['abs_sum']!r}"), worst
+        err = np.abs(np.asarray(g["val"]) - np.asarray(w["val"]))
+        kind = "param" if name.startswith("0__") else "moment"
+        lim = (tol["param_lrs"] * lr_sum if kind == "param"
+               else tol["moment_rel"] * max(w["max_abs"], 1e-30))
+        if over(kind, err, lim):
+            k = int(err.argmax())
+            return (f"{name}[{w['idx'][k]}]: {g['val'][k]!r} vs "
+                    f"{w['val'][k]!r} (limit {lim:.3g})"), worst
     return None, worst
 
 
@@ -433,18 +528,8 @@ def kv_quant_mismatch(M, dev) -> str | None:
 
 
 def run_launcher(args: list[str], timeout: int = 600) -> tuple[str, float]:
-    """``python -m repro_torch.launch.serve ARGS`` in a fresh process on
-    this checkout's sources; its standard output and wall seconds.
-    Fails on a nonzero exit."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          *args], capture_output=True, text=True, env=env,
-                         timeout=timeout, cwd=ROOT)
-    wall = time.perf_counter() - t0
-    check(out.returncode == 0, f"launcher {args} exited {out.returncode}:\n"
-          f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
-    return out.stdout, wall
+    """``python -m repro_torch.launch.serve ARGS``: see :func:`run_module`."""
+    return run_module(["repro_torch.launch.serve", *args], timeout=timeout)
 
 
 def lane_cache_row(out: str) -> dict:
@@ -1637,6 +1722,410 @@ def serving_rest(dev, card: str) -> dict:
     return out
 
 
+PEAK_FLOPS_F32 = 67e12            # H100 SXM float32 outside the tensor cores
+TRAIN_LAYERS = 8                  # train_full's depth: 8 of granite-8b's 36
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+
+
+def train_step_bound(cfg, batch: int, seq: int, remat: bool) -> dict:
+    """The least time one training step of ``cfg`` could take on the
+    card: float32 matmul FLOPs (6 per weight and token for forward and
+    backward, 2 more per block weight and token when the blocks are
+    recomputed, and the dense attention's score and value products, which
+    compute the whole S x S square) over the float32 peak, against the
+    optimizer's bytes (params, grads, both moments and the error state,
+    each read once and all but the grads written once) over the memory
+    rate; the larger of the two."""
+    d, hq, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.d_head, cfg.d_ff)
+    block = d * hq * hd * 2 + d * hkv * hd * 2 + 3 * d * ff
+    head = d * cfg.vocab_padded
+    tokens = batch * seq
+    attn_fwd = 2 * 2 * seq * seq * hq * hd * batch * cfg.n_layers
+    flops = (tokens * (6 * (cfg.n_layers * block + head)
+                       + (2 * cfg.n_layers * block if remat else 0))
+             + attn_fwd * (4 if remat else 3))
+    n_params = (cfg.n_layers * (block + 2 * d) + head
+                + cfg.vocab_padded * d + d)
+    nbytes = 4 * n_params * (5 + 4)
+    flops_ms = flops / PEAK_FLOPS_F32 * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(flops=flops, bytes=nbytes, n_params=n_params,
+                flops_ms=flops_ms, bytes_ms=bytes_ms,
+                bound_ms=max(flops_ms, bytes_ms),
+                bound_by="operations" if flops_ms >= bytes_ms else "bytes")
+
+
+def adam_mismatch(want: list, got: list, lr_sum: float,
+                  frac: float = 1e-3) -> tuple[str | None, float]:
+    """Why params after AdamW steps from one start differ more than
+    float32 noise allows, or None; and the largest difference as a share
+    of ``lr_sum``.  Every entry within 2 x ``lr_sum`` (a grad at noise
+    level may take an update of either sign) and all but ``frac`` of all
+    entries within 1 % of it."""
+    worst, loose, total = 0.0, 0, 0
+    for (name, w), (_n, g) in zip(want, got):
+        d = np.abs(np.asarray(g, np.float64) - w)
+        worst = max(worst, float(d.max()) / lr_sum)
+        if d.max() > 2 * lr_sum:
+            return f"{name}: {d.max()!r} > 2 x sum(lr)", worst
+        loose += int((d > 0.01 * lr_sum).sum())
+        total += d.size
+    if loose > frac * total:
+        return f"{loose} of {total} entries past 1 % of sum(lr)", worst
+    return None, worst
+
+
+def grads_mismatch(want: list, got: list, rtol: float = 1e-4
+                   ) -> tuple[str | None, float]:
+    """Why two lists of (name, grad) differ past ``rtol`` and ``rtol`` x
+    each leaf's max |grad|, or None; and the largest difference as a
+    share of its leaf's max |grad|."""
+    worst = 0.0
+    for (name, w), (_n, g) in zip(want, got):
+        scale = max(float(np.abs(w).max()), 1e-30)
+        d = np.abs(np.asarray(g, np.float64) - w)
+        worst = max(worst, float(d.max()) / scale)
+        if not (d <= rtol * scale + rtol * np.abs(w)).all():
+            return f"{name}: {d.max()!r} of max |grad| {scale!r}", worst
+    return None, worst
+
+
+def run_streamed(args: list[str], timeout: int) -> tuple[str, dict]:
+    """``python -m ARGS`` in a fresh process on this checkout's sources:
+    its output, and the host seconds from the start (or the previous
+    arch) to each arch's first ``[pim] ARCH:`` line.  Fails on a nonzero
+    exit or after ``timeout`` seconds."""
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *args], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    lines, first = [], {}
+    for line in proc.stdout:
+        lines.append(line)
+        m = re.match(r"\[pim\] (\S+):", line)
+        if m and m.group(1) not in first:
+            first[m.group(1)] = time.perf_counter()
+    proc.wait()
+    timer.cancel()
+    text = "".join(lines)
+    check(proc.returncode == 0, f"{args} exited {proc.returncode}:\n"
+          f"{text[-4000:]}")
+    marks = [t0, *first.values()]
+    return text, {a: marks[i + 1] - marks[i] for i, a in enumerate(first)}
+
+
+def train_smoke_mismatch(cfg, dev) -> tuple[str | None, dict]:
+    """``loss_fn``'s loss and grads, then one trainer step (int8, 2
+    microbatches, lr at its peak), from the same seeded weights on the
+    CPU and on ``dev``: why they differ past float32 noise (losses within
+    1e-5, :func:`grads_mismatch`, :func:`adam_mismatch`), or None; and
+    the largest differences."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.training.grad_compress import CompressionConfig
+    from repro_torch.training.optimizer import tree_flatten_with_path
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    start = params_to_numpy(M.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    batch = SyntheticLM(cfg.vocab, seed=0).batch(0, 2, 16)
+    if cfg.prefix_patches:
+        batch["patches"] = (np.random.default_rng(0).standard_normal(
+            (2, cfg.prefix_patches, cfg.d_model)) * 0.1).astype(np.float32)
+    sides = []
+    for d in (torch.device("cpu"), dev):
+        p = params_from_numpy(start, d)
+        named = tree_flatten_with_path(p)
+        for _, t in named:
+            t.requires_grad_(True)
+        loss, _ = M.loss_fn(cfg, p, to_device(batch, d))
+        grads = torch.autograd.grad(loss, [t for _, t in named],
+                                    allow_unused=True)
+        for _, t in named:
+            t.requires_grad_(False)
+        g = [("__".join(path), (torch.zeros_like(t) if gr is None else gr)
+              .cpu().numpy()) for (path, t), gr in zip(named, grads)]
+        tr = Trainer(cfg, TrainConfig(
+            lr=1e-3, warmup=0, total_steps=10, microbatches=2,
+            compression=CompressionConfig("int8"), ckpt_every=1 << 30),
+            params=p)
+        step_loss = tr.train(iter([to_device(batch, d)]), 1,
+                             log_every=1 << 30)[0]["loss"]
+        after = [("__".join(path), t.cpu().numpy())
+                 for path, t in tree_flatten_with_path(tr.params)]
+        sides.append((float(loss.detach()), g, step_loss, after))
+    (lc, gc_, tlc, pc), (lg, gg, tlg, pg) = sides
+    if not (abs(lg - lc) <= 1e-5 * abs(lc)
+            and abs(tlg - tlc) <= 1e-5 * abs(tlc)):
+        return (f"loss {lg!r} / {tlg!r} vs CPU {lc!r} / {tlc!r}", {})
+    msg, gworst = grads_mismatch(gc_, gg)
+    if msg is not None:
+        return f"grads: {msg}", {}
+    msg, pworst = adam_mismatch(pc, pg, 1e-3)
+    return (None if msg is None else f"params: {msg}",
+            dict(grad_worst_of_max=gworst, param_worst_of_lr=pworst))
+
+
+def training_and_report(dev, card: str) -> dict:
+    """Phase 11: the dry-run's PIM offload report and training on the
+    card, in float32 with TF32 off.  Every part's wall ends in
+    ``torch.cuda.synchronize()``; the lane-scan launch count is set to 0
+    before ``pim_report`` and read after it (the subprocesses count their
+    own)."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.core import engine
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import lane_scan
+    from repro_torch.launch import dryrun
+    from repro_torch.models.convert import draw_numpy_params, params_from_numpy
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.grad_compress import CompressionConfig
+    from repro_torch.training.optimizer import (tree_flatten_with_path,
+                                                tree_leaves, tree_map)
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls would not run in full float32")
+    walls: dict = {}
+    out: dict = {"walls": walls}
+
+    def close(part: str, t0: float) -> None:
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t0
+        print(f"[11] {part}: {walls[part]!r} s wall ({card})")
+
+    # -- pim_report: granite-8b's report in-process, then every arch ------
+    t0 = time.perf_counter()
+    engine.lane_cache_reset()
+    lane_scan.LAUNCHES = 0
+    rec = dryrun.pim_offload_report("granite-8b", scenario="bursty",
+                                    policy="hysteresis", disagg=True,
+                                    device=dev)
+    torch.cuda.synchronize()
+    out["launches"] = lane_scan.LAUNCHES
+    fx = json.loads((ROOT / "tests/golden/torch_pim_report.json").read_text())
+    check(json.loads(json.dumps(rec)) == fx,
+          "pim_report: granite-8b != tests/golden/torch_pim_report.json")
+    check(out["launches"] >= 1, "pim_report launched no lane scan")
+    close("pim_report", t0)
+    base = rec["variants"]["lp5x-9600"]["decode_speedup"]["1"]
+    print(f"[11] pim_report: granite-8b (bursty x hysteresis, disagg) == "
+          f"tests/golden/torch_pim_report.json, {out['launches']} lane-scan "
+          f"launches; decode b=1 speedup {base['speedup']!r}")
+    t0 = time.perf_counter()
+    text, per_arch = run_streamed(["repro_torch.launch.dryrun", "--pim",
+                                   "--all"], timeout=400)
+    close("pim_report_all", t0)
+    check(sorted(per_arch) == sorted(ARCHS),
+          f"dryrun --pim --all reported {sorted(per_arch)}")
+    out["pim_report_all_s"] = per_arch
+    print(f"[11] pim_report_all: python -m repro_torch.launch.dryrun --pim "
+          f"--all exited 0; seconds per arch (the first with the process's "
+          f"start) {json.dumps(per_arch)}")
+
+    # -- train_fixture: granite-8b widths, 2 layers, vs the JAX Trainer ----
+    t0 = time.perf_counter()
+    fx = json.loads((ROOT / "tests/golden/torch_train_steps.json")
+                    .read_text())
+    cfg2 = dataclasses.replace(ARCHS[fx["arch"]], n_layers=fx["n_layers"])
+    params = params_from_numpy(draw_numpy_params(cfg2, fx["seed"]), dev)
+    got = port_train_run(fx, cfg2, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    msg, worst = train_mismatch(fx, got)
+    check(msg is None, f"train_fixture: {msg}")
+    close("train_fixture", t0)
+    out["train_fixture"] = dict(worst_share_of_limit=worst, tol=fx["tol"],
+                                losses=got["losses"])
+    print(f"[11] train_fixture: granite-8b widths x {fx['n_layers']} layers, "
+          f"{fx['steps']} steps == tests/golden/torch_train_steps.json; "
+          f"losses {got['losses']}; worst share of each limit "
+          f"{json.dumps(worst)} (limits {json.dumps(fx['tol'])})")
+
+    # -- train_full: granite-8b widths, 8 of 36 layers ---------------------
+    t0 = time.perf_counter()
+    cfg8 = dataclasses.replace(ARCHS["granite-8b"], n_layers=TRAIN_LAYERS)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_full_")
+    tcfg = TrainConfig(lr=3e-4, warmup=2, total_steps=TRAIN_STEPS,
+                       microbatches=2, compression=CompressionConfig("int8"),
+                       ckpt_every=1 << 30, ckpt_dir=ckpt_dir, remat=True)
+    src = SyntheticLM(cfg8.vocab, seed=0)
+    batches = [to_device(src.batch(s, TRAIN_BATCH, TRAIN_SEQ), dev)
+               for s in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg8, tcfg,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for _, p in
+                   tree_flatten_with_path(trainer.params))
+    step_s = []
+
+    def one_step(tr) -> float:
+        t = time.perf_counter()
+        tr.train(iter([batches[tr.step]]), 1, log_every=1 << 30)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return tr.history[-1]["loss"]
+
+    losses = [one_step(trainer) for _ in range(3)]
+    tc = time.perf_counter()
+    saved = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                     (trainer.params, trainer.opt))
+    CKPT.save(ckpt_dir, trainer.step, saved)
+    save_s = time.perf_counter() - tc
+    losses += [one_step(trainer) for _ in range(TRAIN_STEPS - 3)]
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses),
+          f"train_full: losses {losses}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = time.perf_counter()
+    fresh = Trainer(cfg8, tcfg,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    check(fresh.restore_latest() and fresh.step == 3,
+          "train_full: no checkpoint restored at step 3")
+    restore_s = time.perf_counter() - tc
+    for (path, t), want in zip(
+            tree_flatten_with_path((fresh.params, fresh.opt)),
+            tree_leaves(saved)):
+        check(torch.equal(t.detach().cpu(), want),
+              f"train_full: restored {'__'.join(path)} != saved")
+    del saved
+    prof = profile_step(lambda: fresh.train(iter([batches[3]]), 1,
+                                            log_every=1 << 30))
+    restored_loss = fresh.history[-1]["loss"]
+    check(abs(restored_loss - losses[3]) <= 1e-5 * abs(losses[3]),
+          f"train_full: step 4 from the checkpoint {restored_loss!r} vs "
+          f"{losses[3]!r}")
+    del fresh
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    close("train_full", t0)
+    bound = train_step_bound(cfg8, TRAIN_BATCH, TRAIN_SEQ, remat=True)
+    step_ms = statistics.median(step_s[3:TRAIN_STEPS]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out["train_full"] = dict(
+        layers=TRAIN_LAYERS, n_params=n_params, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, microbatches=2, losses=losses,
+        restored_step4_loss=restored_loss, step_s=step_s, step_ms=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3), peak_bytes=peak,
+        save_s=save_s, restore_s=restore_s, profile=prof, bound=bound,
+        card=card)
+    print(f"[11] train_full: granite-8b widths x {TRAIN_LAYERS} layers "
+          f"({n_params} params), batch {TRAIN_BATCH} x {TRAIN_SEQ}, 2 "
+          f"microbatches, int8 compression, remat; losses {losses}; step 4 "
+          f"from the step-3 checkpoint {restored_loss!r} (tree bit-equal "
+          f"after save {save_s!r} s / restore {restore_s!r} s)")
+    print(f"[11] train_full: step {step_ms!r} ms (median of steps 4-6), "
+          f"{tokens / (step_ms / 1e3)!r} tokens/s, peak {peak} bytes; one "
+          f"step under the profiler: {prof['wall_ms']!r} ms wall, device "
+          f"{prof['device_ms']!r} ms (busy share {prof['busy_share']!r}), "
+          f"{prof['launches']} kernel launches; bound {bound['bound_ms']!r} "
+          f"ms by {bound['bound_by']} ({bound['flops']} FLOP at "
+          f"{PEAK_FLOPS_F32:.3g} FLOP/s; {bound['bytes']} bytes) ({card})")
+
+    # -- train_smoke: every token-input smoke arch, card == CPU ------------
+    t0 = time.perf_counter()
+    smoke = {}
+    for name, full in ARCHS.items():
+        if full.input_mode != "tokens":
+            continue
+        msg, smoke[name] = train_smoke_mismatch(smoke_config(full), dev)
+        check(msg is None, f"train_smoke {name}: card != CPU: {msg}")
+    close("train_smoke", t0)
+    out["train_smoke"] = smoke
+    print(f"[11] train_smoke: card == CPU on {len(smoke)} token-input smoke "
+          f"archs (loss, grads, one trainer step): {json.dumps(smoke)}")
+
+    # -- launcher_train: the launcher and the examples ---------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        text, wall = run_module(["repro_torch.launch.train", "--smoke",
+                                 "--steps", "20", "--microbatches", "2",
+                                 "--compression", "int8",
+                                 "--simulate-failure", "--ckpt-dir", d])
+    done = [ln for ln in text.splitlines() if ln.startswith("done:")]
+    check(bool(done) and math.isfinite(float(done[-1].split("=")[-1])),
+          f"launcher_train: no finite 'done:' line:\n{text[-2000:]}")
+    runs = {"launcher": wall}
+    for script, args, want in (
+            ("torch_train_small.py", ["--steps", "40"], "loss "),
+            ("torch_quickstart.py", [], "== numpy GEMV? True")):
+        text, wall = run_module([str(ROOT / "examples" / script), *args],
+                                module=False)
+        check(want in text, f"{script}: no '{want}' in:\n{text[-2000:]}")
+        runs[script] = wall
+    close("launcher_train", t0)
+    out["launcher_train"] = dict(runs, done=done[-1])
+    print(f"[11] launcher_train: {done[-1]}; seconds {json.dumps(runs)}")
+    out["phase_wall_s"] = sum(walls.values())
+    return out
+
+
+def run_module(args: list[str], module: bool = True, timeout: int = 600
+               ) -> tuple[str, float]:
+    """``python -m ARGS`` (or ``python ARGS`` with ``module=False``) in a
+    fresh process on this checkout's sources: its standard output and
+    wall seconds.  Fails on a nonzero exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *(["-m"] if module else []),
+                          *args], capture_output=True, text=True, env=env,
+                         timeout=timeout, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"{args} exited {out.returncode}:\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout, wall
+
+
+def profile_step(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall (ending in a
+    synchronize), device time, busy share, kernel launches and the five
+    kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    launches, by_kernel = kernel_times(prof)
+    device_ms = sum(us for us, _k, _n in by_kernel) / 1e3
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms, launches=launches,
+                top_kernels=[dict(kernel=k, ms=us / 1e3, calls=n)
+                             for us, k, n in sorted(by_kernel,
+                                                    reverse=True)[:5]])
+
+
+def kernel_times(prof) -> tuple[int, list]:
+    """A ``torch.profiler`` run's kernel launches, and (device us, kernel
+    name, calls) of each CUDA kernel (CPU ops carry their kernels' time
+    too: each kernel is counted once)."""
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                 "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    return launches, [(ev.self_device_time_total, ev.key[:80], ev.count)
+                      for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def profile_decode(M, cfg, params, cache, tok, pos, steps: int = 3) -> dict:
     """Device time and kernel launches per decode step, and the five
     kernels with the most device time, from ``torch.profiler`` over
@@ -1651,18 +2140,8 @@ def profile_decode(M, cfg, params, cache, tok, pos, steps: int = 3) -> dict:
             _logits, cache = M.decode_step(cfg, params, cache, tok, pos)
             pos = pos + 1
         torch.cuda.synchronize()
-    launches = sum(ev.count for ev in prof.key_averages()
-                   if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                 "cudaLaunchKernelExC", "cuLaunchKernelEx"))
-    device_us = 0
-    by_kernel = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            # CPU ops carry their kernels' time too: count kernels once
-            continue
-        us = ev.self_device_time_total
-        device_us += us
-        by_kernel.append((us, ev.key[:80], ev.count))
+    launches, by_kernel = kernel_times(prof)
+    device_us = sum(us for us, _k, _n in by_kernel)
     top = [dict(kernel=k, ms=us / 1e3 / steps, calls=n / steps)
            for us, k, n in sorted(by_kernel, reverse=True)[:5]]
     return dict(device_ms=device_us / 1e3 / steps,
@@ -2090,13 +2569,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     rest = serving_rest(dev, card)
 
+    # ---- 11. the dry-run's PIM report and training --------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = training_and_report(dev, card)
+
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{
         "name": "lane_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lane_scan.cu",
         "replaces": "src/repro/kernels/lane_scan.py:49",
         "launches": (total_launches + serving["launches"]
-                     + with_model["launches"] + rest["launches"]),
+                     + with_model["launches"] + rest["launches"]
+                     + training["launches"]),
         "max_abs_err": worst,
         "ms": main_fleet["ms"], "plain_ms": plain_ms,
         "bound_ms": main_fleet["bound_ms"],
@@ -2111,9 +2596,14 @@ def main() -> int:
         "launches_by_phase": {"4": total_launches,
                               "8": serving["launches"],
                               "9": with_model["launches"],
-                              "10": rest["launches"]},
+                              "10": rest["launches"],
+                              "11": training["launches"]},
         "serving": serving, "serving_with_a_model": with_model,
-        "serving_rest": rest},
+        "serving_rest": rest,
+        "pim_report": {k: training[k] for k in ("launches",
+                                                 "pim_report_all_s")},
+        "training": {k: v for k, v in training.items()
+                     if k not in ("launches", "pim_report_all_s")}},
         *pim_entries]}
     print(card)
     print(json.dumps(kernels))

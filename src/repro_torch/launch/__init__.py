@@ -1,1 +1,2 @@
-"""Launchers: ``python -m repro_torch.launch.serve``."""
+"""Launchers: ``python -m repro_torch.launch.serve``, ``.train`` and
+``.dryrun --pim``."""

@@ -9,20 +9,29 @@ layers; serving writes each layer's slice of the stacked cache in place.
 Public surface:
   init_params(cfg, generator, device)  -> params tree (stacked layers)
   forward(cfg, params, batch)          -> logits (train/prefill path)
+  loss_fn(cfg, params, batch)          -> (loss + 0.01 aux, metrics)
   init_cache(cfg, batch, seq, device=) -> KV/SSM cache tree
   prefill(cfg, params, batch, cache)   -> (logits_last, cache)
   decode_step(cfg, params, cache, token, pos) -> (logits, cache)
   quantize_for_serving(params, w_bits) -> W8/W4 serving tree
+
+Training recomputes each block in the backward pass (``REMAT_POLICY``
+``"full"``: ``torch.utils.checkpoint`` keeps only the block's input).
+The dry-run's other policies and its sharding specs (``param_logical``,
+``input_specs``, ``param_specs``) belong to the distribution slice and
+raise here.
 
 ``init_params`` and ``init_cache`` run on the card unless given
 ``device="cpu"``; the rest follow their parameters' device.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
@@ -32,6 +41,18 @@ from . import quant as Q
 from . import ssm as SSM
 
 PyTree = Any
+
+# REMAT_POLICY: "full" = recompute each block in the backward pass (keep
+# only its input), "none" = keep every activation.  The JAX package's
+# "dots", "moe-save" and "tp-save" are set only by the dry-run's
+# --variant (distribution slice).
+# CE_CHUNKS: > 1 computes the cross-entropy in that many sequence chunks
+# without materializing the full (B, S, vocab) logits.
+REMAT_POLICY = "full"
+CE_CHUNKS = 0
+
+_DISTRIBUTION_SLICE = ("belongs to the dry-run's cell lowering (the "
+                       "lane-mesh / distribution slice), not ported yet")
 
 # Quantized serving (the paper's W8-W4 formats): 0 = full-precision
 # params; 8/4 = int8 / packed-int4 matmul weights + scales
@@ -308,27 +329,97 @@ def _embed_tokens(params, tokens):
     return emb[tokens]
 
 
-def _backbone(cfg: ArchConfig, params, x, positions):
+def _block_train(cfg: ArchConfig, kind: int, positions, x, blk):
+    x, a, _ = _block_apply(cfg, blk, kind, x, positions)
+    return x, a
+
+
+def _remat_wrap(body):
+    if REMAT_POLICY not in ("full", "none"):
+        raise NotImplementedError(f"REMAT_POLICY {REMAT_POLICY!r} "
+                                  f"{_DISTRIBUTION_SLICE}")
+    if REMAT_POLICY == "none" or not torch.is_grad_enabled():
+        return body
+    return functools.partial(checkpoint, body, use_reentrant=False)
+
+
+def _backbone(cfg: ArchConfig, params, x, positions, remat: bool = True):
     kinds = layer_kinds(cfg).tolist()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a, _ = _block_apply(cfg, _layer(params["blocks"], i), kinds[i],
-                               x, positions)
+        body = functools.partial(_block_train, cfg, kinds[i], positions)
+        if remat:
+            body = _remat_wrap(body)
+        x, a = body(x, _layer(params["blocks"], i))
         aux = aux + a
     return x, aux
 
 
 def forward(cfg: ArchConfig, params, batch, remat: bool = True):
     """Full-sequence forward -> (logits (B, S, vocab), aux_loss).
-    ``remat`` is accepted for the reference's signature; nothing here
-    keeps activations for a backward pass."""
+    ``remat``: recompute each block in the backward pass
+    (``REMAT_POLICY``); without grad enabled it changes nothing."""
     x, positions = _embed_inputs(cfg, params, batch)
-    x, aux = _backbone(cfg, params, x, positions)
+    x, aux = _backbone(cfg, params, x, positions, remat)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.mm(x, _head_matrix(cfg, params))
     if cfg.prefix_patches:
         logits = logits[:, cfg.prefix_patches:]
     return logits, aux
+
+
+# ---------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------
+
+def _nll_sum(logits, labels, mask):
+    """Sum of the masked next-token negative log-likelihoods."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    return (nll * mask).sum()
+
+
+def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
+    """Mean next-token cross-entropy over ``labels >= 0`` plus 0.01 x the
+    MoE aux loss -> (total, {"loss", "aux"})."""
+    labels = torch.as_tensor(batch["labels"],
+                             device=params["ln_f"].device).long()
+    mask = (labels >= 0).float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    if CE_CHUNKS > 1:
+        # chunked CE: never materialize the full (B, S, vocab) logits.
+        x, positions = _embed_inputs(cfg, params, batch)
+        x, aux = _backbone(cfg, params, x, positions, remat)
+        x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        if cfg.prefix_patches:
+            x = x[:, cfg.prefix_patches:]
+        head = _head_matrix(cfg, params)
+        s = x.shape[1]
+        csz = -(-s // CE_CHUNKS)
+        nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(CE_CHUNKS):
+            sl = slice(i * csz, (i + 1) * csz)
+            if x[:, sl].shape[1] == 0:
+                continue
+            nll_sum = nll_sum + _nll_sum(L.mm(x[:, sl], head),
+                                         labels[:, sl], mask[:, sl])
+        loss = nll_sum / denom
+    else:
+        logits, aux = forward(cfg, params, batch, remat)
+        loss = _nll_sum(logits, labels, mask) / denom
+    return loss + 0.01 * aux, dict(loss=loss, aux=aux)
+
+
+def param_logical(cfg: ArchConfig):
+    raise NotImplementedError(f"param_logical {_DISTRIBUTION_SLICE}")
+
+
+def input_specs(cfg: ArchConfig, shape, *args, **kwargs):
+    raise NotImplementedError(f"input_specs {_DISTRIBUTION_SLICE}")
+
+
+def param_specs(cfg: ArchConfig, *args, **kwargs):
+    raise NotImplementedError(f"param_specs {_DISTRIBUTION_SLICE}")
 
 
 # ---------------------------------------------------------------------

@@ -847,3 +847,61 @@ def test_warm_start_round_trip_in_fresh_processes(dev, tmp_path):
     assert saved > 0 and smoke.lane_cache_row(cold)["misses"] > 0
     assert f"{saved} lanes loaded" in warm
     assert smoke.lane_cache_row(warm)["misses"] == 0
+
+
+# ---------------------------------------------------------------------
+# Training and the dry-run's PIM report (chip_smoke.py phase 11)
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["granite-8b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b", "mamba2-130m",
+                                  "internvl2-26b"])
+def test_smoke_train_step_on_card_equals_cpu(dev, arch):
+    """``loss_fn``'s loss and grads and one trainer step on the card ==
+    on the CPU within float32 noise (``chip_smoke`` phase 11's check)."""
+    msg, _ = _chip_smoke().train_smoke_mismatch(smoke_config(ARCHS[arch]),
+                                                dev)
+    assert msg is None, msg
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A trainer on the card saves at step 2; a fresh one restores the
+    tree bit-equal and its step 3 gives the same loss."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = smoke_config(ARCHS["granite-8b"])
+    tcfg = TrainConfig(lr=3e-3, warmup=1, total_steps=10, microbatches=2,
+                       ckpt_every=2, ckpt_dir=str(tmp_path))
+    src = SyntheticLM(cfg.vocab, seed=0)
+    batches = [to_device(src.batch(s, 4, 16), dev) for s in range(3)]
+    a = Trainer(cfg, tcfg, generator=torch.Generator(dev).manual_seed(0))
+    a.train(iter(batches[:2]), 2, log_every=1 << 30)
+    saved = [t.cpu() for t in tree_leaves((a.params, a.opt))]
+    b = Trainer(cfg, tcfg, generator=torch.Generator(dev).manual_seed(1))
+    assert b.restore_latest() and b.step == 2
+    for want, got in zip(saved, tree_leaves((b.params, b.opt))):
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+    la = a.train(iter(batches[2:]), 1, log_every=1 << 30)[-1]["loss"]
+    lb = b.train(iter(batches[2:]), 1, log_every=1 << 30)[-1]["loss"]
+    assert abs(la - lb) <= 1e-6 * abs(la)
+
+
+def test_pim_report_on_card_equals_cpu(dev, monkeypatch, tmp_path):
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
+    monkeypatch.setattr(dryrun, "ARCHS",
+                        {"granite-8b": smoke_config(ARCHS["granite-8b"])})
+    before = lane_scan.LAUNCHES
+    card = dryrun.pim_offload_report("granite-8b", scenario="bursty",
+                                     policy="hysteresis", disagg=True,
+                                     device=dev)
+    assert lane_scan.LAUNCHES > before
+    engine.lane_cache_reset()
+    cpu = dryrun.pim_offload_report("granite-8b", scenario="bursty",
+                                    policy="hysteresis", disagg=True,
+                                    device="cpu")
+    assert json.loads(json.dumps(card)) == json.loads(json.dumps(cpu))
