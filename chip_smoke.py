@@ -99,6 +99,25 @@ Phases (any failure exits nonzero before the last line):
    repro_torch.launch.serve --daemon --autoscale --chaos --trace-out F
    --quick``, whose streamed trace must load.
 
+11. The dry-run's PIM report and training (``pim_report``,
+   ``pim_report_all``, ``train_fixture``, ``train_full``, ``train_smoke``,
+   ``launcher_train``).
+12. The lane mesh and the dry-run's cell lowering, each part's wall
+   beside the card's name and power limit: ``lowering``, six cells
+   traced by ``python -m repro_torch.launch.dryrun --shape`` in parallel
+   processes (granite-8b's three shapes on pod1, its ``train_4k`` on
+   pod2, dbrx-132b ``decode_32k`` on pod1 and granite-8b ``decode_32k``
+   under ``--variant serve-tp-w4-kv8``; fake tensors on the card's
+   device type over a fake 512-rank group), each record ``ok`` and
+   printed with its roofline terms at the H100's spec figures;
+   ``lane_mesh``, granite-8b's report (``tests/golden/
+   torch_pim_report.json``) over a lane mesh of four shards of the card
+   (at least one lane-scan launch a shard), then again with a persistent
+   ``backend.mesh`` fault that must step down to ``backend.scan`` with
+   the report unchanged, then ``dryrun --pim --mesh 4`` in a fresh
+   process; ``serve_mesh``, ``serve_trace.json`` replayed through the
+   36-layer granite-8b with ``mesh=4``.
+
 Times (phases 2, 5 and 7) follow one protocol, :func:`timed_ms`: L2
 flushed before every launch, one pair of CUDA events per launch, the
 median, min and max over many launches (100 for the PIM-tile kernels,
@@ -106,7 +125,7 @@ median, min and max over many launches (100 for the PIM-tile kernels,
 library call timed in turns.
 
 The second-to-last line is the ``kernels`` JSON record (all five
-kernels; the lane scan's launches are phases 4 and 8-11's); the last is
+kernels; the lane scan's launches are phases 4 and 8-12's); the last is
 ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -2076,6 +2095,189 @@ def training_and_report(dev, card: str) -> dict:
     return out
 
 
+LOWERING_CELLS = (("granite-8b", "train_4k", "pod1", "baseline"),
+                  ("granite-8b", "prefill_32k", "pod1", "baseline"),
+                  ("granite-8b", "decode_32k", "pod1", "baseline"),
+                  ("granite-8b", "train_4k", "pod2", "baseline"),
+                  ("dbrx-132b", "decode_32k", "pod1", "baseline"),
+                  ("granite-8b", "decode_32k", "pod1", "serve-tp-w4-kv8"))
+
+
+def lane_mesh_and_lowering(dev, card: str,
+                           single_s: float | None = None) -> dict:
+    """Phase 12: the lane mesh on the card and the dry-run's cell
+    lowering.  ``single_s``: phase 11's single-device report seconds,
+    printed beside the mesh's.  The six lowering cells run as ``dryrun`` processes in the
+    background while the lane-mesh parts use the card; the lane-scan
+    launch count is set to 0 before ``lane_mesh`` and read after
+    ``serve_mesh`` (the subprocesses count their own)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import engine, faults
+    from repro_torch.kernels import lane_scan
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.serving import scenarios as scen
+    from repro_torch.serving.offload import OffloadPlanner
+
+    walls: dict = {}
+    out: dict = {"walls": walls}
+
+    def close(part: str, t0: float) -> None:
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t0
+        print(f"[12] {part}: {walls[part]!r} s wall ({card})")
+
+    # -- lowering: six cells, one process each, started first ------------
+    t_low = time.perf_counter()
+    procs = []
+    for arch, shape, mesh, variant in LOWERING_CELLS:
+        args = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--mesh", mesh, "--variant",
+                variant]
+        procs.append(subprocess.Popen(
+            args, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    # -- lane_mesh: granite-8b's report over four shards of the card -----
+    fx = json.loads((ROOT / "tests/golden/torch_pim_report.json").read_text())
+    mesh = engine.build_lane_mesh(4, [dev] * 4)
+    t0 = time.perf_counter()
+    engine.lane_cache_reset()
+    lane_scan.LAUNCHES = 0
+    engine.MESH_SHARD_LAUNCHES.clear()
+    with engine.lane_mesh_scope(mesh):
+        check(engine.ladder_rungs() == ["mesh", "scan"],
+              f"lane mesh ladder {engine.ladder_rungs()}")
+        rec = dryrun.pim_offload_report("granite-8b", scenario="bursty",
+                                        policy="hysteresis", disagg=True,
+                                        device=dev)
+    torch.cuda.synchronize()
+    check(engine.lane_mesh() is None, "the lane mesh scope leaked")
+    check(json.loads(json.dumps(rec)) == fx,
+          "lane_mesh: granite-8b's report != tests/golden/"
+          "torch_pim_report.json")
+    shards = dict(engine.MESH_SHARD_LAUNCHES)
+    check(sorted(shards) == [0, 1, 2, 3] and min(shards.values()) >= 1,
+          f"lane_mesh: lane-scan launches by shard {shards}")
+    mesh_launches = lane_scan.LAUNCHES
+    close("lane_mesh", t0)
+    beside = ("" if single_s is None else
+              f" (phase 11's single-device report: {single_s!r} s)")
+    print(f"[12] lane_mesh: granite-8b's report over 4 shards of {dev} == "
+          f"tests/golden/torch_pim_report.json in {walls['lane_mesh']!r} s"
+          f"{beside}; {mesh_launches} lane-scan launches, by shard "
+          f"{json.dumps(shards)}")
+
+    # the same report with every mesh launch failing: scan takes over
+    t0 = time.perf_counter()
+    engine.lane_cache_reset()
+    faults.reset_events()
+    inj = faults.FaultInjector()
+    inj.arm("backend.mesh", count=1_000_000)
+    before = lane_scan.LAUNCHES
+    with faults.fault_scope(inj), faults.retry_scope(
+            retries=1, clock=faults.VirtualClock()), \
+            engine.lane_mesh_scope(mesh):
+        rec = dryrun.pim_offload_report("granite-8b", scenario="bursty",
+                                        policy="hysteresis", disagg=True,
+                                        device=dev)
+    torch.cuda.synchronize()
+    steps = [(e["site"], e["kind"]) for e in faults.events()]
+    faults.reset()          # events, injector and the tripped breaker
+    check(json.loads(json.dumps(rec)) == fx,
+          "lane_mesh_fault: the report changed on the scan rung")
+    check(("backend.mesh", "degrade") in steps,
+          "lane_mesh_fault: no step-down from backend.mesh")
+    check(not any(site == "backend.scan" for site, _k in steps),
+          "lane_mesh_fault: the scan rung faulted")
+    check(lane_scan.LAUNCHES > before, "lane_mesh_fault: scan never ran")
+    close("lane_mesh_fault", t0)
+    print(f"[12] lane_mesh_fault: backend.mesh failing on every attempt: "
+          f"{steps.count(('backend.mesh', 'degrade'))} step-downs to "
+          f"backend.scan, then {steps.count(('backend.mesh', 'skip'))} "
+          f"skips with the breaker open; report == the golden, "
+          f"{lane_scan.LAUNCHES - before} scan launches")
+
+    t0 = time.perf_counter()
+    text, _wall = run_module(["repro_torch.launch.dryrun", "--pim", "--arch",
+                              "granite-8b", "--scenario", "bursty",
+                              "--policy", "hysteresis", "--disagg",
+                              "--mesh", "4"], timeout=300)
+    got = json.loads((ROOT / "experiments/dryrun_torch/pim/granite-8b.json")
+                     .read_text())
+    check(got == fx, "dryrun --pim --mesh 4: granite-8b.json != the golden")
+    check("[pim] lane mesh: 4 shard(s)" in text,
+          "dryrun --pim --mesh 4 did not take the lane mesh")
+    close("lane_mesh_cli", t0)
+
+    # -- serve_mesh: serve_trace through the 36-layer model, mesh=4 ------
+    t0 = time.perf_counter()
+    cfg = ARCHS["granite-8b"]
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    engine.lane_cache_reset()
+    engine.MESH_SHARD_LAUNCHES.clear()
+    planner = OffloadPlanner(cfg, device=dev)
+    fixture = json.loads((ROOT / "tests/golden/serve_trace.json").read_text())
+    got = scen.replay_trace(fixture, cfg, params, planner, mesh=4,
+                            device=dev)
+    torch.cuda.synchronize()
+    check(engine.lane_mesh() is None, "serve_mesh: the mesh scope leaked")
+    check(json.loads(json.dumps(got)) == fixture,
+          "serve_mesh: serve_trace not reproduced under mesh=4")
+    serve_shards = dict(engine.MESH_SHARD_LAUNCHES)
+    check(sorted(serve_shards) == [0, 1, 2, 3],
+          f"serve_mesh: lane-scan launches by shard {serve_shards}")
+    del params, planner
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = lane_scan.LAUNCHES
+    close("serve_mesh", t0)
+    print(f"[12] serve_mesh: serve_trace == the golden through the "
+          f"{cfg.n_layers}-layer {cfg.name} with mesh=4, launches by shard "
+          f"{json.dumps(serve_shards)}")
+
+    # -- lowering: collect the six records --------------------------------
+    rows = []
+    for (arch, shape, mesh_name, variant), proc in zip(LOWERING_CELLS,
+                                                       procs):
+        try:
+            text, _ = proc.communicate(timeout=max(
+                30, 280 - (time.perf_counter() - t_low)))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"lowering: {arch} {shape} {mesh_name} {variant} "
+                 f"timed out")
+        check(proc.returncode == 0,
+              f"lowering: {arch} {shape} {mesh_name} {variant} exited "
+              f"{proc.returncode}: {text[-1500:]}")
+        rec = json.loads(dryrun._out_path(arch, shape, mesh_name, variant)
+                         .read_text())
+        check(rec["status"] == "ok", f"lowering: {arch} {shape} "
+              f"{mesh_name} {variant}: {rec.get('error')}")
+        row = rec["roofline"]
+        rows.append(dict(variant=variant, flops_dev=rec["flops"],
+                         collective=rec["collective"],
+                         arg_gib_dev=rec["per_device_arg_gib"],
+                         lower_s=rec["lower_s"], wall_s=rec["wall_s"],
+                         device_type=rec["device_type"], **row))
+        print(f"[12] lowering: {arch} {shape} {mesh_name} {variant}: "
+              f"{rec['flops']!r} flops/device, collective bytes "
+              f"{json.dumps(rec['collective'])}, "
+              f"{rec['per_device_arg_gib']!r} GiB of arguments/device, "
+              f"useful_ratio {row['useful_ratio']!r}, t_compute "
+              f"{row['t_compute_s']!r} s, t_memory {row['t_memory_s']!r} s, "
+              f"t_collective {row['t_collective_s']!r} s "
+              f"({row['bottleneck']}), traced {rec['lower_s']} s on "
+              f"{rec['device_type']} fake tensors ({card})")
+    out["lowering"] = rows
+    walls["lowering"] = time.perf_counter() - t_low
+    print(f"[12] lowering: {walls['lowering']!r} s wall for the six cells "
+          f"in parallel processes ({card})")
+    return out
+
+
 def run_module(args: list[str], module: bool = True, timeout: int = 600
                ) -> tuple[str, float]:
     """``python -m ARGS`` (or ``python ARGS`` with ``module=False``) in a
@@ -2574,6 +2776,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     training = training_and_report(dev, card)
 
+    # ---- 12. the lane mesh and the dry-run's cell lowering -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshes = lane_mesh_and_lowering(dev, card,
+                                    training["walls"]["pim_report"])
+
     main_fleet = fleets["granite_8b_decode"]
     kernels = {"kernels": [{
         "name": "lane_scan", "route": "cuda",
@@ -2581,7 +2789,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/lane_scan.py:49",
         "launches": (total_launches + serving["launches"]
                      + with_model["launches"] + rest["launches"]
-                     + training["launches"]),
+                     + training["launches"] + meshes["launches"]),
         "max_abs_err": worst,
         "ms": main_fleet["ms"], "plain_ms": plain_ms,
         "bound_ms": main_fleet["bound_ms"],
@@ -2597,13 +2805,15 @@ def main() -> int:
                               "8": serving["launches"],
                               "9": with_model["launches"],
                               "10": rest["launches"],
-                              "11": training["launches"]},
+                              "11": training["launches"],
+                              "12": meshes["launches"]},
         "serving": serving, "serving_with_a_model": with_model,
         "serving_rest": rest,
         "pim_report": {k: training[k] for k in ("launches",
                                                  "pim_report_all_s")},
         "training": {k: v for k, v in training.items()
-                     if k not in ("launches", "pim_report_all_s")}},
+                     if k not in ("launches", "pim_report_all_s")},
+        "lane_mesh_and_lowering": meshes},
         *pim_entries]}
     print(card)
     print(json.dumps(kernels))

@@ -16,16 +16,27 @@ Nothing drops to the CPU on its own, and a kernel that fails to build or
 launch raises.
 
 The launches run under a :class:`BackendScope`'s degradation ladder
-(:func:`ladder_rungs`): each rung passes through the ``backend.<rung>``
-fault seam, retries, and steps down on failure, with the scope's circuit
-breaker skipping a rung that failed K resolves in a row.  On one device
-the ladder is ``["scan"]``: ``scan`` names the single-device lane
-resolver (the kernel on the card, the plain version on the CPU).  Its
-failure, an injected fault or a real build or launch error, raises once
-its retries are spent: nothing runs the plain version on a card tensor.
+(:func:`ladder_rungs`), highest rung first: ``mesh`` when a lane mesh is
+configured (the lanes split into equal shards, one launch a shard, each
+on its shard's device and CUDA stream), ``threaded`` when more than one
+lane device is configured (slabs balanced across the devices, one worker
+thread a distinct device), and ``scan``, always, last: one launch per
+bank count on the resolve's device.  Every rung runs the same lane
+resolver (the kernel on the card, the plain version on the CPU), so where
+a resolve lands never changes its bytes.  Each rung passes through the
+``backend.<rung>`` fault seam, retries, and steps down on failure, with
+the scope's circuit breaker skipping a rung that failed K resolves in a
+row.  The terminal rung's failure, an injected fault or a real build or
+launch error, raises once its retries are spent: nothing runs the plain
+version on a card tensor.
+
+A lane mesh is a 1-D list of torch devices, the counterpart of the JAX
+package's 1-D ``lanes`` mesh; a device may repeat (``["cuda:0"] * 4`` is
+four shards of one card, as the JAX package forces host devices).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -277,14 +288,13 @@ def lane_cache_verify() -> int:
 # ---------------------------------------------------------------------------
 # Backend scopes and the degradation ladder.
 #
-# A BackendScope holds the requested lane backend and its OWN circuit
-# breaker.  The process keeps one default scope behind the classic
-# configure_lane_backend API; serving cells each carry their own, so a
-# breaker tripped by one cell's faults never changes the other cell's
-# ladder.  The JAX package's backend names are accepted: "pallas" and
-# "auto" resolve to "scan", as there where no Pallas kernel runs.  The
-# lane mesh and threaded multi-device dispatch (its "mesh" and "threaded"
-# rungs) are not ported yet (Queue 1 item 8), so the ladder is ["scan"].
+# A BackendScope holds the requested lane backend, the lane mesh, the
+# lane devices and its OWN circuit breaker.  The process keeps one
+# default scope behind the classic configure_* API; serving cells each
+# carry their own, so a breaker tripped by one cell's faults never
+# changes the other cell's ladder.  The JAX package's backend names are
+# accepted: "pallas" and "auto" resolve to "scan", as there where no
+# Pallas kernel runs.
 # ---------------------------------------------------------------------------
 
 _LANE_BACKENDS = ("scan", "pallas", "auto")
@@ -302,29 +312,40 @@ def _check_backend(name: str | None) -> str | None:
 
 @dataclasses.dataclass
 class BackendScope:
-    """One lane-execution scope: requested backend and its own circuit
-    breaker (``breaker=None`` delegates to the process breaker, which is
-    what the default scope does).  Serving cells activate theirs around
-    their tick work with :class:`backend_scope`."""
+    """One lane-execution scope: requested backend, lane mesh, lane
+    devices and its own circuit breaker (``breaker=None`` delegates to
+    the process breaker, which is what the default scope does).  Serving
+    cells activate theirs around their tick work with
+    :class:`backend_scope`.
+
+    ``mesh``: ``None``, an ``int`` n (a lane mesh over the first n
+    visible devices) or a 1-D list of devices.  ``max_devices``: the lane
+    devices, as an ``int`` cap on the visible devices (``None``: the
+    ``REPRO_LANE_DEVICES`` variable, else all) or a list of devices."""
 
     backend: str | None = None
+    mesh: "list | int | None" = None
+    max_devices: "int | list | None" = None
     breaker: "faults.CircuitBreaker | None" = dataclasses.field(
         default_factory=faults.CircuitBreaker)
     name: str = ""
 
     def __post_init__(self):
         self.backend = _check_backend(self.backend)
+        if self.mesh is not None:
+            self.mesh = _as_lane_mesh(self.mesh)
 
     def scope_breaker(self) -> "faults.CircuitBreaker":
         return (self.breaker if self.breaker is not None
                 else faults.backend_breaker())
 
     def describe(self) -> dict:
-        """Trace-exportable view, keyed as the JAX package's: one device,
-        no lane mesh."""
+        """Trace-exportable view, keyed as the JAX package's."""
         return dict(name=self.name, backend=lane_backend(self),
-                    resolved=resolved_lane_backend(self), mesh=None,
-                    devices=1, rungs=ladder_rungs(self),
+                    resolved=resolved_lane_backend(self),
+                    mesh=None if self.mesh is None else len(self.mesh),
+                    devices=len(lane_devices(self)),
+                    rungs=ladder_rungs(self),
                     breaker=self.scope_breaker().info())
 
 
@@ -363,10 +384,12 @@ class backend_scope:
 
 def reset_backend_scopes() -> None:
     """Deactivate any active scope and restore the default scope's
-    backend to its boot state (test hygiene)."""
+    fields to their boot state (test hygiene)."""
     global _ACTIVE_SCOPE
     _ACTIVE_SCOPE = None
     _DEFAULT_SCOPE.backend = None
+    _DEFAULT_SCOPE.mesh = None
+    _DEFAULT_SCOPE.max_devices = None
 
 
 def configure_lane_backend(name: str | None) -> str:
@@ -407,15 +430,150 @@ class lane_backend_scope:
         return False
 
 
+# ---------------------------------------------------------------------------
+# Lane devices and the lane mesh.
+# ---------------------------------------------------------------------------
+
+def visible_devices() -> list[torch.device]:
+    """The devices lanes may shard over: every visible CUDA device, or
+    the host when there is none."""
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)]
+            or [torch.device("cpu")])
+
+
+def configure_lane_devices(n: "int | Sequence | None") -> None:
+    """Set the default scope's lane devices: an ``int`` caps the visible
+    devices, a list names them (a device may repeat), ``None`` restores
+    the ``REPRO_LANE_DEVICES`` variable, else every visible device."""
+    _DEFAULT_SCOPE.max_devices = (None if n is None else
+                                  n if isinstance(n, int) else
+                                  [torch.device(d) for d in n])
+
+
+def lane_devices(scope: BackendScope | None = None) -> list:
+    """The devices the threaded rung shards over."""
+    scope = active_backend_scope() if scope is None else scope
+    n = scope.max_devices
+    if isinstance(n, (list, tuple)):
+        return [torch.device(d) for d in n]
+    devs = visible_devices()
+    if n is None:
+        n = int(os.environ.get("REPRO_LANE_DEVICES", "0") or 0) or len(devs)
+    return devs[: max(1, min(n, len(devs)))]
+
+
+def build_lane_mesh(n: int, devices: "Sequence | None" = None) -> list:
+    """Construct (without configuring) a lane mesh: the first ``n`` of
+    ``devices`` (default: :func:`visible_devices`), the one place that
+    validates lane-mesh sizes (``launch.mesh.make_lane_mesh`` delegates
+    here)."""
+    devs = visible_devices() if devices is None else \
+        [torch.device(d) for d in devices]
+    if not 1 <= n <= len(devs):
+        raise ValueError(
+            f"lane mesh size {n} needs 1..{len(devs)} of the devices "
+            f"given (hint: repeat a device, as ['cuda:0'] * {n})")
+    return devs[:n]
+
+
+def _as_lane_mesh(mesh) -> list | None:
+    if mesh is None:
+        return None
+    if isinstance(mesh, int):
+        return build_lane_mesh(mesh)
+    mesh = list(mesh)
+    if not mesh or any(isinstance(d, (list, tuple)) for d in mesh):
+        raise ValueError(f"lane mesh must be 1-D and non-empty, got "
+                         f"{mesh!r}")
+    return [torch.device(d) for d in mesh]
+
+
+def configure_lane_mesh(mesh: "list | int | None") -> list | None:
+    """Select the default scope's lane mesh: ``None`` turns it off, an
+    ``int`` n builds one over the first n visible devices, a 1-D list of
+    devices is used as is.  Returns the configured mesh (or None)."""
+    _DEFAULT_SCOPE.mesh = _as_lane_mesh(mesh)
+    return _DEFAULT_SCOPE.mesh
+
+
+def lane_mesh(scope: BackendScope | None = None) -> list | None:
+    """The configured lane mesh (None: no mesh rung)."""
+    scope = active_backend_scope() if scope is None else scope
+    return scope.mesh
+
+
+def lane_mesh_on(mesh, device) -> list | None:
+    """A run's lane mesh: an ``int`` n is n shards of the run's
+    ``device`` (``[device] * n``), a list is used as is, ``None`` is
+    none (serving, chaos and the launchers take ``mesh=`` this way)."""
+    if isinstance(mesh, int):
+        return build_lane_mesh(mesh, [resolve_device(device)] * mesh)
+    return _as_lane_mesh(mesh)
+
+
+class lane_mesh_scope:
+    """Context manager: run lane resolution under ``mesh`` on the default
+    scope, then restore the previous mesh (also on an exception)."""
+
+    def __init__(self, mesh: "list | int | None"):
+        self._mesh = mesh
+
+    def __enter__(self):
+        self._prev = _DEFAULT_SCOPE.mesh
+        return configure_lane_mesh(self._mesh)
+
+    def __exit__(self, *exc):
+        _DEFAULT_SCOPE.mesh = self._prev
+        return False
+
+
+# Widest slab per launch of the mesh and threaded rungs (the JAX
+# package's per-program width).
+_MAX_WIDTH = 128
+
+
+def _fleet_bucket(n: int) -> int:
+    """Pad a slab's width to powers of two (>= 4)."""
+    return 1 << max(2, (max(n, 1) - 1).bit_length())
+
+
+def _mesh_width(n: int, m: int) -> int:
+    """Global width for ``n`` lanes on an ``m``-way mesh: the per-shard
+    width is power-of-two bucketed and every shard gets the same width,
+    so the global width is ``m`` times that."""
+    return _fleet_bucket(-(-n // m)) * m
+
+
+# Kernel launches of the mesh rung, per shard index (the plain version
+# on the CPU never counts).
+MESH_SHARD_LAUNCHES: dict[int, int] = {}
+
+_STREAMS: dict = {}
+
+
+def _shard_stream(dev: torch.device, k: int):
+    """Shard ``k``'s own CUDA stream on ``dev`` (None off the card)."""
+    if dev.type != "cuda":
+        return None
+    key = (dev.index, k)
+    if key not in _STREAMS:
+        _STREAMS[key] = torch.cuda.Stream(device=dev)
+    return _STREAMS[key]
+
+
 def _ladder_rungs(scope: BackendScope | None = None) -> list[str]:
-    """The degradation ladder for ``scope``, highest rung first.  "scan"
-    is the terminal rung and, until the mesh and threaded rungs are
-    ported, the only one."""
-    # Until then every rung runs the same resolver (``_run_rung`` ignores
-    # its rung), so the walk's skip / degrade branches run only when a
-    # test patches in a second rung.  Porting the mesh must give each
-    # rung its own resolver, or collapse the walk to one retry_call.
-    return ["scan"]
+    """The degradation ladder for ``scope``, highest rung first: "mesh"
+    when a lane mesh is configured, "threaded" when more than one lane
+    device is, and "scan" always, as the terminal rung."""
+    scope = active_backend_scope() if scope is None else scope
+    rungs = []
+    if lane_mesh(scope) is not None:
+        rungs.append("mesh")
+    if len(lane_devices(scope)) > 1:
+        rungs.append("threaded")
+    rungs.append("scan")
+    return rungs
 
 
 def ladder_rungs(scope: BackendScope | None = None) -> list[str]:
@@ -517,39 +675,147 @@ def resolve_lanes(
         else:
             alias[rep].append(u)
 
-    # One launch per bank count.  Within it, lanes are ordered by length
-    # bucket, so results enter the LRU in the reference engine's slab
-    # order and eviction under capacity pressure matches it exactly.
+    # Lanes are ordered by length bucket within each bank count, and
+    # every rung stores its results in that order, so results enter the
+    # LRU in the reference engine's slab order and eviction under
+    # capacity pressure matches it exactly.
     order = sorted(todo, key=lambda u: _length_bucket(uniq[u][1].shape[0]))
     done: set[int] = set()
 
-    def _run_rung(_rung: str) -> None:
-        # Every rung runs the one lane resolver on ``dev``.
+    def _pending() -> list[tuple[int, list[int]]]:
         groups: dict[int, list[int]] = {}
         for u in order:
             if u not in done:
                 groups.setdefault(uniq[u][0].num_banks, []).append(u)
-        for nb, idxs in sorted(groups.items()):
-            cycs, streams, lengths = pack_lanes([(uniq[u][0], uniq[u][1])
-                                                 for u in idxs])
-            iss, tot = lane_scan.lane_scan(cycs.to(dev), streams.to(dev),
-                                           lengths.to(dev), nb,
-                                           need_issue=need_issue)
-            tot = tot.cpu().numpy()
-            iss = iss.cpu().numpy() if need_issue else None
-            for row, u in enumerate(idxs):
-                if need_issue:
-                    # copy: a view would pin the whole padded slab;
-                    # read-only: results are shared between deduped
-                    # lanes and the LRU, so mutation must be an error
-                    arr = iss[row, : uniq[u][1].shape[0]].copy()
-                    arr.setflags(write=False)
-                    issues[u] = arr
-                for v in (u, *alias[u]):
-                    totals[v] = tot[row]
-                    issues[v] = issues[u]
-                    _lane_cache_put(uniq[v][2], int(tot[row]), issues[u])
-                done.add(u)
+        return sorted(groups.items())
+
+    def _launch(nb: int, idxs: list[int], dev: torch.device,
+                width: int | None = None, stream=None, like: int = 0):
+        """Pack ``idxs`` (padded to ``width`` rows of length-0 lanes with
+        the timing row of lane ``like``, or of their first lane) and
+        launch the resolver on ``dev`` (on ``stream``, if given); returns
+        the device results."""
+        lanes = [(uniq[u][0], uniq[u][1]) for u in idxs] or \
+            [(uniq[like][0], np.zeros((1, 4), np.int32))]
+        cycs, streams, lengths = pack_lanes(lanes)
+        pad = (width or len(lanes)) - len(lanes)
+        if pad:
+            cycs = torch.cat([cycs, cycs[:1].expand(pad, -1)])
+            streams = torch.cat([streams, streams.new_zeros(
+                (pad, *streams.shape[1:]))])
+            lengths = torch.cat([lengths, lengths.new_zeros(pad)])
+        ctx = torch.cuda.stream(stream) if stream is not None \
+            else contextlib.nullcontext()
+        with ctx:
+            return lane_scan.lane_scan(
+                cycs.to(dev, non_blocking=True),
+                streams.to(dev, non_blocking=True),
+                lengths.to(dev, non_blocking=True), nb,
+                need_issue=need_issue)
+
+    def _read(res, stream=None):
+        if stream is not None:
+            stream.synchronize()
+        iss, tot = res
+        return (iss.cpu().numpy() if need_issue else None,
+                tot.cpu().numpy())
+
+    def _store(idxs: list[int], iss, tot) -> None:
+        """Write one launch's rows (true lengths) into the results and
+        the LRU; rows past ``idxs`` (padding) are never read."""
+        for row, u in enumerate(idxs):
+            if need_issue:
+                # copy: a view would pin the whole padded slab;
+                # read-only: results are shared between deduped
+                # lanes and the LRU, so mutation must be an error
+                arr = iss[row, : uniq[u][1].shape[0]].copy()
+                arr.setflags(write=False)
+                issues[u] = arr
+            for v in (u, *alias[u]):
+                totals[v] = tot[row]
+                issues[v] = issues[u]
+                _lane_cache_put(uniq[v][2], int(tot[row]), issues[u])
+            done.add(u)
+
+    def _run_scan() -> None:
+        # One launch per bank count on the resolve's device.
+        for nb, idxs in _pending():
+            _store(idxs, *_read(_launch(nb, idxs, dev)))
+
+    def _run_mesh() -> None:
+        # Each bank count's lanes in <= 128 x m chunks, each padded to
+        # _mesh_width and split into m equal shards, one launch a shard
+        # on its device and stream; every launch goes out before any
+        # read-back.
+        mesh = lane_mesh(scope)
+        m = len(mesh)
+        jobs = []
+        for nb, idxs in _pending():
+            for lo in range(0, len(idxs), _MAX_WIDTH * m):
+                chunk = idxs[lo:lo + _MAX_WIDTH * m]
+                per = _mesh_width(len(chunk), m) // m
+                for k, shard_dev in enumerate(mesh):
+                    rows = chunk[k * per:(k + 1) * per]
+                    stream = _shard_stream(shard_dev, k)
+                    before = lane_scan.LAUNCHES
+                    res = _launch(nb, rows, shard_dev, width=per,
+                                  stream=stream, like=chunk[0])
+                    if lane_scan.LAUNCHES > before:
+                        MESH_SHARD_LAUNCHES[k] = \
+                            MESH_SHARD_LAUNCHES.get(k, 0) + 1
+                    jobs.append((rows, res, stream))
+        for rows, res, stream in jobs:
+            iss, tot = _read(res, stream)
+            _store(rows, iss, tot)
+
+    def _run_threaded() -> None:
+        # <= 128-lane slabs balanced greedily over the lane devices by
+        # padded width x length; one worker thread per distinct device,
+        # each launching its slabs on its entries' streams, then reading
+        # back; results are stored in slab order once all are back.
+        devs = lane_devices(scope)
+        slabs = [(nb, idxs[lo:lo + _MAX_WIDTH])
+                 for nb, idxs in _pending()
+                 for lo in range(0, len(idxs), _MAX_WIDTH)]
+        loads = [0] * len(devs)
+        assignment = [0] * len(slabs)
+        for i in sorted(range(len(slabs)), key=lambda j: -(
+                _fleet_bucket(len(slabs[j][1]))
+                * max(uniq[u][1].shape[0] for u in slabs[j][1]))):
+            d = loads.index(min(loads))
+            assignment[i] = d
+            loads[d] += _fleet_bucket(len(slabs[i][1])) * max(
+                uniq[u][1].shape[0] for u in slabs[i][1])
+        per_dev: dict = {}
+        for i, d in enumerate(assignment):
+            per_dev.setdefault(devs[d], []).append((i, d))
+        results: dict = {}
+        errors: list[BaseException] = []
+
+        def work(jobs) -> None:
+            try:
+                launched = [(i, _shard_stream(devs[d], d)) for i, d in jobs]
+                launched = [(i, st, _launch(slabs[i][0], slabs[i][1],
+                                            devs[d], stream=st))
+                            for (i, st), (_i, d) in zip(launched, jobs)]
+                for i, st, res in launched:
+                    results[i] = _read(res, st)
+            except BaseException as e:      # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=work, args=(jobs,))
+                   for jobs in per_dev.values()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        for i, (_nb, idxs) in enumerate(slabs):
+            _store(idxs, *results[i])
+
+    runners = {"mesh": _run_mesh, "threaded": _run_threaded,
+               "scan": _run_scan}
 
     # Walk the ladder: the highest closed rung first, transient faults
     # absorbed by retries, a persistent failure stepping down (and
@@ -565,7 +831,7 @@ def resolve_lanes(
                 faults.record_event(site, "skip", "circuit open")
                 continue
             try:
-                faults.retry_call(lambda: _run_rung(rung), site)
+                faults.retry_call(runners[rung], site)
                 breaker.record_success(site)
                 break
             except Exception as e:  # noqa: BLE001 - the ladder absorbs it

@@ -8,7 +8,7 @@ seeded by ``hash((step, batch, seq))``, and the hash of a tuple of
 Python ints does not depend on ``PYTHONHASHSEED``, so both packages draw
 the same tokens.  :class:`Prefetcher` fills a bounded queue from a
 background thread, each batch copied onto its device from pinned memory
-without blocking.
+without blocking, or placed across a device mesh (``sharding=``).
 """
 from __future__ import annotations
 
@@ -63,19 +63,18 @@ def to_device(batch: dict, device) -> dict:
 
 class Prefetcher:
     """Background-thread prefetch + device placement (the card unless
-    ``device`` says otherwise)."""
+    ``device`` says otherwise).  ``sharding``: a dict of ``(DeviceMesh,
+    placements)`` per batch key; each array is then placed with
+    ``distribute_tensor`` instead."""
 
     def __init__(self, source: SyntheticLM, batch: int, seq: int,
                  sharding=None, depth: int = 2, start_step: int = 0,
                  device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "Prefetcher(sharding=) places batches across a device "
-                "mesh, which belongs to the lane-mesh / distribution "
-                "slice; pass device=")
         self.source = source
         self.batch, self.seq = batch, seq
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self.device = None if sharding is not None \
+            else resolve_device(device)
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self.step = start_step
         self._stop = threading.Event()
@@ -83,9 +82,15 @@ class Prefetcher:
         self.thread.start()
 
     def _work(self):
+        from repro_torch.training.checkpoint import place_sharded
         while not self._stop.is_set():
-            b = to_device(self.source.batch(self.step, self.batch,
-                                            self.seq), self.device)
+            b = self.source.batch(self.step, self.batch, self.seq)
+            if self.sharding is not None:
+                b = {k: place_sharded(torch.from_numpy(
+                    np.ascontiguousarray(v)), self.sharding[k])
+                    for k, v in b.items()}
+            else:
+                b = to_device(b, self.device)
             try:
                 self.q.put(b, timeout=1.0)
                 self.step += 1
@@ -100,3 +105,4 @@ class Prefetcher:
 
     def close(self):
         self._stop.set()
+        self.thread.join(timeout=10.0)

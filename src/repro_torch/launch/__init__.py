@@ -1,2 +1,3 @@
 """Launchers: ``python -m repro_torch.launch.serve``, ``.train`` and
-``.dryrun --pim``."""
+``.dryrun`` (cell lowering and ``--pim``); ``launch/mesh.py`` builds the
+production and lane meshes."""

@@ -41,8 +41,10 @@ package's launcher refuses the pair).
 resolved-lane LRU across processes (``core/warmstart.py``); the
 ``serve/time_to_first_batch`` and ``serve/lane_cache`` rows show what a
 warm start saved.  ``--lane-backend`` accepts the JAX package's names;
-all resolve to the one lane resolver here.  The lane mesh (``--mesh``)
-is not ported yet (Queue 1 item 8).
+all resolve to the one lane resolver here.  ``--mesh N`` resolves the
+planner's lanes on a lane mesh of N shards of ``--device`` (each shard
+its own launch and CUDA stream); the results, and so the report, do not
+change.
 """
 from __future__ import annotations
 
@@ -332,6 +334,9 @@ def main(argv=None) -> None:
                     help="lane resolver backend (default: "
                          "REPRO_LANE_BACKEND or scan); every name runs "
                          "the one lane resolver here")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="resolve the PIM lanes on a lane mesh of N "
+                         "shards of --device (default: no mesh)")
     ap.add_argument("--device", default=None,
                     help="torch device of the model and the lane resolver "
                          "(default: the current CUDA device)")
@@ -348,6 +353,8 @@ def main(argv=None) -> None:
             ap.error(f"{name} requires --daemon")
     if args.autoscale and not args.daemon:
         ap.error("--autoscale requires --daemon")
+    if args.mesh is not None and args.mesh < 1:
+        ap.error("--mesh takes a shard count >= 1")
     try:
         if args.scenario:
             args.scenario = resolve_scenario(args.scenario)
@@ -372,6 +379,17 @@ def main(argv=None) -> None:
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                            device=device)
 
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import make_lane_mesh
+        mesh = make_lane_mesh(args.mesh, [device] * args.mesh)
+        print(f"lane mesh: {args.mesh} shard(s) of {device}", flush=True)
+    with lane_engine.lane_mesh_scope(mesh):
+        _serve(args, full_cfg, cfg, params, device, t_start)
+
+
+def _serve(args, full_cfg, cfg, params, device, t_start) -> None:
+    """The launcher's modes, under the lane mesh ``main`` set up."""
     if args.daemon:
         run_daemon_mode(args, full_cfg, cfg, params, device)
         _warm_epilogue(args)

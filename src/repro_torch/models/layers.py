@@ -27,6 +27,9 @@ NEG_INF = -1e30
 
 # Sequences longer than this use the blockwise streaming-softmax path.
 FLASH_THRESHOLD = 2048
+# Flash attention carries at most this many f32 scores a step: as many
+# query blocks advance together as fit (256 MiB of scores); None: all.
+FLASH_CHUNK_SCORES = 1 << 26
 
 # Skip causal upper-triangle (q-block, k-block) pairs in the blockwise
 # attention (only when the queries start at position 0).
@@ -91,6 +94,25 @@ class NumpyDraw:
             np.broadcast_to(value, (*lead, *value.shape)))
 
 
+class MetaDraw:
+    """Draws every leaf as a ``meta`` tensor: shapes and dtypes, no
+    storage (the dry-run's parameter specs)."""
+
+    def __init__(self, dtype=torch.float32):
+        self.dtype = dtype
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        return self.zeros(shape)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=self.dtype, device="meta")
+
+    ones = zeros
+
+    def const(self, value: np.ndarray, lead=()) -> torch.Tensor:
+        return self.zeros((*lead, *np.shape(value)))
+
+
 # ---------------------------------------------------------------------
 # Norm, rotary embedding, matmul helper
 # ---------------------------------------------------------------------
@@ -103,10 +125,113 @@ def _div(a: torch.Tensor, b) -> torch.Tensor:
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with the operands promoted to one dtype, as jnp does."""
+    b = LAYOUT.weight(b, a)
     if a.dtype != b.dtype:
         t = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(t), b.to(t)
     return a @ b
+
+
+# ---------------------------------------------------------------------
+# Layout hooks
+# ---------------------------------------------------------------------
+
+class Layout:
+    """The model's layout hooks: one call at each site where a step
+    traced under a mesh must place its values (the JAX package leaves
+    that to XLA's sharding propagation).  This class is the model on
+    plain tensors: every hook is the plain op.
+    ``distribution/layout.py``'s ``MeshLayout`` is the same hooks for
+    DTensor operands, installed as :data:`LAYOUT` for a traced step."""
+
+    def weight(self, w, x):
+        """Weight ``w`` as a matmul with ``x`` uses it."""
+        return w
+
+    def residual(self, x, like=None):
+        """The residual stream (``like``: the value it follows)."""
+        return x
+
+    def pin(self, x):
+        """``x``, its gradient held to its layout."""
+        return x
+
+    def embed(self, table, ids):
+        """``table[ids]``."""
+        return table[ids]
+
+    def split_heads(self, t, n_heads: int):
+        """``t`` (..., H * hd) as (..., H, hd)."""
+        return t.reshape(*t.shape[:-1], n_heads, t.shape[-1] // n_heads)
+
+    def attention_heads(self, q, k, v):
+        """q, k, v (B, S, H, hd) as attention takes them."""
+        return q, k, v
+
+    def attend(self, fn, q, k, v, **kw):
+        """``fn(q, k, v, **kw)``: attention."""
+        return fn(q, k, v, **kw)
+
+    def cache_queries(self, q, k):
+        """The queries as dense attention over cache ``k`` takes them."""
+        return q
+
+    def write_rows_(self, cache, pos, x):
+        """``cache[r, pos[r]] = x[r, 0]`` for every row r, in place (the
+        decode step's cache write; positions clamped into the cache as
+        ``dynamic_update_slice`` clamps its start).  cache (B, S, ...),
+        pos (B,), x (B, 1, ...)."""
+        pos = torch.clamp(pos, 0, cache.shape[1] - 1).long()
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, pos] = x[:, 0].to(cache.dtype)
+
+    def write_prefix_(self, cache, x):
+        """``cache[:, :S] = x`` in place for x (B, S, ...) (the
+        prefill's cache write)."""
+        cache[:, :x.shape[1]] = x.to(cache.dtype)
+
+    def nll_sum(self, logits, labels, mask):
+        """Sum of the masked next-token negative log-likelihoods."""
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+        return (nll * mask).sum()
+
+    def constrain(self, x, spec):
+        """``x`` laid out as the pspec ``spec`` (a sharding constraint)."""
+        return x
+
+    def dispatch_buffer(self, xt, rows: int):
+        """The zeroed (rows, d) MoE dispatch buffer for tokens ``xt``."""
+        return torch.zeros((rows, xt.shape[1]), dtype=xt.dtype,
+                           device=xt.device)
+
+    def scatter_add(self, buf, idx, xt, spec=None):
+        """``buf`` with ``xt``'s rows added at rows ``idx``, laid out as
+        ``spec``."""
+        buf.index_add_(0, idx, xt)
+        return buf
+
+    def take_rows(self, out_e, out_flat, idx):
+        """``out_flat[idx]``, ``out_flat`` the (E * cap, d) view of the
+        expert outputs ``out_e``."""
+        return out_flat[idx]
+
+    def cumsum(self, x, dim: int = -1):
+        return torch.cumsum(x, dim)
+
+    def ssm_readout(self, c, state):
+        """The SSM decode readout: c (B, N), state (B, H, P, N) ->
+        (B, H, P)."""
+        return torch.einsum("bn,bhpn->bhp", c.float(), state)
+
+    def per_shard(self, fn, x):
+        """``fn(x)`` for an ``fn`` that maps each block of rows on its
+        own."""
+        return fn(x)
+
+
+# The hooks in use; ``distribution.layout.mesh_layout()`` swaps them.
+LAYOUT = Layout()
 
 
 def rms_norm(x, gamma, eps: float = 1e-5):
@@ -134,13 +259,6 @@ def rope(x, positions, theta: float):
 # Attention
 # ---------------------------------------------------------------------
 
-def _mask(qi, ki, window):
-    m = ki[None, :] <= qi[:, None]
-    if window is not None:
-        m = m & ((qi[:, None] - ki[None, :]) < window)
-    return m
-
-
 def dense_attention(q, k, v, *, window=None, q_offset=0, kv_len=None):
     """Quadratic-path GQA attention (short sequences / decode).
 
@@ -153,6 +271,7 @@ def dense_attention(q, k, v, *, window=None, q_offset=0, kv_len=None):
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     dev = q.device
+    q = LAYOUT.cache_queries(q, k)
     qg = q.reshape(b, sq, hkv, g, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
     scores = scores * (1.0 / math.sqrt(hd))
@@ -177,7 +296,14 @@ def flash_attention(q, k, v, *, window=None, q_offset=0,
                     block_q: int = 512, block_k: int = 512):
     """Blockwise streaming-softmax attention (prefill / train on long S).
 
-    Never materializes more than (B, Hkv, G, block_q, block_k) scores.
+    Each query block streams over the key blocks in order, as the JAX
+    package's nested scans do.  Up to ``FLASH_CHUNK_SCORES`` scores'
+    worth of query blocks advance together, one key block a step, so a
+    step never materializes more than that many f32 scores (and a short
+    sequence takes O(key blocks) ops; ``None``, as the dry-run's trace
+    sets it, advances them all).  With ``FLASH_SKIP_BLOCKS``
+    (queries from position 0) a key block visits only the query blocks
+    whose causal range it overlaps.
     """
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -194,45 +320,66 @@ def flash_attention(q, k, v, *, window=None, q_offset=0,
     kb = kp.reshape(b, nk, bk, hkv, hd).permute(1, 0, 3, 2, 4)
     vb = vp.reshape(b, nk, bk, hkv, hd).permute(1, 0, 3, 2, 4)
     scale = 1.0 / math.sqrt(hd)
+    skip = FLASH_SKIP_BLOCKS and isinstance(q_offset, int) and q_offset == 0
+    qi = (q_offset + torch.arange(nq * bq, device=dev)).reshape(nq, bq)
+    chunk = nq if FLASH_CHUNK_SCORES is None else \
+        max(1, min(nq, FLASH_CHUNK_SCORES // (b * hq * bq * bk)))
 
-    def kv_scan(qblk, qi, n_blocks):
-        m = torch.full((b, hkv, g, bq), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, hkv, g, bq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, g, bq, hd), dtype=torch.float32,
-                          device=dev)
-        for ki_idx in range(n_blocks):
+    done = []                   # finished query blocks, in order
+    for c0 in range(0, nq, chunk):
+        c1 = min(nq, c0 + chunk)
+        # the chunk's running max, sum and output; rows [lo, c1)
+        m = torch.full((c1 - c0, b, hkv, g, bq), NEG_INF,
+                       dtype=torch.float32, device=dev)
+        l = torch.zeros((c1 - c0, b, hkv, g, bq), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((c1 - c0, b, hkv, g, bq, hd),
+                          dtype=torch.float32, device=dev)
+        qf = qb[c0:c1].float()
+        lo = c0
+        for ki_idx in range(nk):
+            # query blocks this key block reaches (all, or the causal tail)
+            reach = max(c0, (ki_idx * bk) // bq) if skip else c0
+            if reach >= c1:
+                break
+            if reach > lo:      # blocks [lo, reach) see no later key
+                n = reach - lo
+                done.append((acc[:n] / torch.clamp_min(l[:n], 1e-30)[
+                    ..., None]).to(q.dtype))
+                m, l, acc, qf = m[n:], l[n:], acc[n:], qf[n:]
+                lo = reach
             kblk, vblk = kb[ki_idx], vb[ki_idx]
             ki = ki_idx * bk + torch.arange(bk, device=dev)
-            s = torch.einsum("bkgqd,bksd->bkgqs", qblk.float(),
+            s = torch.einsum("nbkgqd,bksd->nbkgqs", qf,
                              kblk.float()) * scale
-            msk = _mask(qi, ki, window) & (ki < sk)[None, :]
-            s = torch.where(msk[None, None, None], s, NEG_INF)
+            msk = ki[None, None, :] <= qi[lo:c1, :, None]
+            if window is not None:
+                msk = msk & ((qi[lo:c1, :, None] - ki[None, None, :])
+                             < window)
+            msk = msk & (ki < sk)[None, None, :]
+            s = torch.where(msk[:, None, None, None], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bksd->bkgqd", p.to(vblk.dtype), vblk)
+                "nbkgqs,bksd->nbkgqd", p.to(vblk.dtype), vblk)
             m = m_new
-        return acc / torch.clamp_min(l, 1e-30)[..., None]
-
-    outs = []
-    for qi_idx in range(nq):
-        if FLASH_SKIP_BLOCKS and isinstance(q_offset, int) and q_offset == 0:
-            qi = qi_idx * bq + torch.arange(bq, device=dev)
-            hi = min(nk, -(-((qi_idx + 1) * bq) // bk))
-        else:
-            qi = q_offset + qi_idx * bq + torch.arange(bq, device=dev)
-            hi = nk
-        outs.append(kv_scan(qb[qi_idx], qi, hi).to(q.dtype))
-    ob = torch.stack(outs)                      # (nq, b, hkv, g, bq, hd)
+        done.append((acc / torch.clamp_min(l, 1e-30)[..., None])
+                    .to(q.dtype))
+    ob = done[0] if len(done) == 1 else torch.cat(done)
     out = ob.permute(1, 0, 4, 2, 3, 5).reshape(b, nq * bq, hq, hd)
     return out[:, :sq]
 
 
 def attention(q, k, v, *, window=None, q_offset=0, kv_len=None,
               flash_threshold: int | None = None):
+    return LAYOUT.attend(_attention, q, k, v, window=window,
+                         q_offset=q_offset, kv_len=kv_len,
+                         flash_threshold=flash_threshold)
+
+
+def _attention(q, k, v, *, window, q_offset, kv_len, flash_threshold):
     if flash_threshold is None:
         flash_threshold = FLASH_THRESHOLD
     if q.shape[1] == 1 or k.shape[1] <= flash_threshold:
@@ -252,6 +399,13 @@ def mlp_apply(params, x, kind: str):
     else:  # gelu (jax.nn.gelu's default: the tanh approximation)
         h = F.gelu(mm(x, params["wi"]), approximate="tanh")
     return mm(h, params["wo"])
+
+
+def mlp_logical(kind: str):
+    p = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if kind == "swiglu":
+        p["wg"] = ("embed", "mlp")
+    return p
 
 
 def mlp_init(draw, d, ff, kind: str, lead=()):

@@ -14,12 +14,13 @@ Public surface:
   prefill(cfg, params, batch, cache)   -> (logits_last, cache)
   decode_step(cfg, params, cache, token, pos) -> (logits, cache)
   quantize_for_serving(params, w_bits) -> W8/W4 serving tree
+  param_logical(cfg)                   -> same-structure tree of logical axes
+  param_specs(cfg, dtype)              -> the params as ``meta`` tensors
+  input_specs(cfg, shape, dtype)       -> a cell's inputs as ``meta`` tensors
 
-Training recomputes each block in the backward pass (``REMAT_POLICY``
-``"full"``: ``torch.utils.checkpoint`` keeps only the block's input).
-The dry-run's other policies and its sharding specs (``param_logical``,
-``input_specs``, ``param_specs``) belong to the distribution slice and
-raise here.
+Training recomputes each block in the backward pass under
+``REMAT_POLICY`` (``torch.utils.checkpoint``; the selective policies
+save what the JAX package's checkpoint policies save).
 
 ``init_params`` and ``init_cache`` run on the card unless given
 ``device="cpu"``; the rest follow their parameters' device.
@@ -43,16 +44,13 @@ from . import ssm as SSM
 PyTree = Any
 
 # REMAT_POLICY: "full" = recompute each block in the backward pass (keep
-# only its input), "none" = keep every activation.  The JAX package's
-# "dots", "moe-save" and "tp-save" are set only by the dry-run's
-# --variant (distribution slice).
+# only its input), "none" = keep every activation, "dots" = keep the
+# outputs of matmuls without batch dims, "tp-save" / "moe-save" = keep
+# only the values marked "tp_out" / "moe_out" (:func:`checkpoint_name`).
 # CE_CHUNKS: > 1 computes the cross-entropy in that many sequence chunks
 # without materializing the full (B, S, vocab) logits.
 REMAT_POLICY = "full"
 CE_CHUNKS = 0
-
-_DISTRIBUTION_SLICE = ("belongs to the dry-run's cell lowering (the "
-                       "lane-mesh / distribution slice), not ported yet")
 
 # Quantized serving (the paper's W8-W4 formats): 0 = full-precision
 # params; 8/4 = int8 / packed-int4 matmul weights + scales
@@ -117,13 +115,14 @@ def _layer_init(draw, cfg: ArchConfig, lead):
     return p
 
 
-def layer_kinds(cfg: ArchConfig) -> torch.Tensor:
-    """(L,) int32 on the CPU: 1 = global attention, 0 = local (sliding
-    window)."""
-    idx = torch.arange(cfg.n_layers)
+def layer_kinds(cfg: ArchConfig) -> list[int]:
+    """Each layer's kind: 1 = global attention, 0 = local (sliding
+    window).  Plain ints, so tracing with fake tensors never reads a
+    tensor's value."""
     if cfg.sliding_window is None or cfg.global_every == 0:
-        return torch.ones((cfg.n_layers,), dtype=torch.int32)
-    return (idx % cfg.global_every == cfg.global_every - 1).to(torch.int32)
+        return [1] * cfg.n_layers
+    return [int(i % cfg.global_every == cfg.global_every - 1)
+            for i in range(cfg.n_layers)]
 
 
 def init_params(cfg: ArchConfig, generator=None, device=None,
@@ -134,7 +133,7 @@ def init_params(cfg: ArchConfig, generator=None, device=None,
     a fresh one seeded 0), or a ``layers.NumpyDraw`` for numpy arrays.
     ``device``: default the generator's, else the card.
     """
-    if isinstance(generator, L.NumpyDraw):
+    if isinstance(generator, (L.NumpyDraw, L.MetaDraw)):
         draw = generator
     else:
         if device is None and generator is not None:
@@ -192,9 +191,9 @@ def _attn_apply(p, cfg: ArchConfig, x, kind: int, positions, cache_kv=None,
     v = L.mm(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    q = L.LAYOUT.split_heads(q, hq)
+    k = L.LAYOUT.split_heads(k, hkv)
+    v = L.LAYOUT.split_heads(v, hkv)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
 
@@ -213,10 +212,8 @@ def _attn_apply(p, cfg: ArchConfig, x, kind: int, positions, cache_kv=None,
                 kq, vq = kv_quant(k, sk), kv_quant(v, sv)
             else:
                 kq, vq = k, v
-            rows = torch.arange(b, device=ck.device)
-            at = torch.clamp(posv, 0, ck.shape[1] - 1).long()
-            ck[rows, at] = kq[:, 0].to(ck.dtype)
-            cv[rows, at] = vq[:, 0].to(cv.dtype)
+            L.LAYOUT.write_rows_(ck, posv, kq)
+            L.LAYOUT.write_rows_(cv, posv, vq)
             # attend over the cache (padded; mask via kv_len)
             if kv_q:
                 k_all = (ck.float() * sk).to(q.dtype)
@@ -233,8 +230,8 @@ def _attn_apply(p, cfg: ArchConfig, x, kind: int, positions, cache_kv=None,
                 new_scale = (sk, sv)
             else:
                 kq, vq = k, v
-            ck[:, :s] = kq.to(ck.dtype)
-            cv[:, :s] = vq.to(cv.dtype)
+            L.LAYOUT.write_prefix_(ck, kq)
+            L.LAYOUT.write_prefix_(cv, vq)
             # prefill: the fresh k/v ARE the valid cache prefix
             k_all, v_all = k, v
             q_offset = 0
@@ -250,9 +247,14 @@ def _attn_apply(p, cfg: ArchConfig, x, kind: int, positions, cache_kv=None,
     if cfg.sliding_window is not None:
         # kind == 1 -> global: disable the window via a huge value.
         window = (1 << 30) if int(kind) == 1 else cfg.sliding_window
+    if cache_kv is None or s > 1:
+        q, k_all, v_all = L.LAYOUT.attention_heads(q, k_all, v_all)
     out = L.attention(q, k_all.to(q.dtype), v_all.to(q.dtype),
                       window=window, q_offset=q_offset, kv_len=kv_len_eff)
-    return L.mm(out.reshape(b, s, hq * hd), p["wo"]), new_cache, new_scale
+    # pin: the gradient comes back whole over the heads, so the
+    # reshape's backward never splits a sharded dim between heads
+    return L.mm(L.LAYOUT.pin(out.reshape(b, s, hq * hd)), p["wo"]), \
+        new_cache, new_scale
 
 
 def _block_apply(cfg: ArchConfig, params, kind, x, positions,
@@ -263,6 +265,7 @@ def _block_apply(cfg: ArchConfig, params, kind, x, positions,
                                 dtype=params["ln1"].dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
+    x = L.LAYOUT.residual(x)
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     mix = 0.0
     if not cfg.attention_free:
@@ -274,7 +277,7 @@ def _block_apply(cfg: ArchConfig, params, kind, x, positions,
         new_cache["kv"] = kv
         if kv_scale is not None:
             new_cache["kv_scale"] = kv_scale
-        mix = attn_out
+        mix = checkpoint_name(attn_out, "tp_out")
     if cfg.ssm is not None:
         y, st, cst = SSM.ssm_block(
             params["ssm"], h, cfg.ssm,
@@ -287,17 +290,19 @@ def _block_apply(cfg: ArchConfig, params, kind, x, positions,
             mix = 0.5 * (_rmsn(mix) + _rmsn(y))
         else:
             mix = y
-    x = x + mix
+    x = L.LAYOUT.residual(x + mix)
     h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = MOE.moe_apply(params["moe"], h, top_k=cfg.moe.top_k,
                                capacity_factor=cfg.moe.capacity_factor,
                                mlp_kind=cfg.mlp)
+        y = checkpoint_name(y, "moe_out")
     elif cfg.d_ff > 0:
-        y = L.mlp_apply(params["mlp"], h, cfg.mlp)
+        y = checkpoint_name(L.mlp_apply(params["mlp"], h, cfg.mlp),
+                            "tp_out")
     else:
         y = torch.zeros_like(h)
-    return x + y, aux, new_cache
+    return L.LAYOUT.residual(x + y), aux, new_cache
 
 
 def _rmsn(x):
@@ -324,9 +329,11 @@ def _embed_tokens(params, tokens):
     emb = params["embed"]
     tokens = torch.as_tensor(tokens, device=params["ln_f"].device).long()
     if Q.is_bundle(emb):
-        rows = emb["q"][tokens]
-        return (rows.float() * emb["s"]).to(params["ln_f"].dtype)
-    return emb[tokens]
+        rows = L.LAYOUT.embed(emb["q"], tokens)
+        x = (rows.float() * emb["s"]).to(params["ln_f"].dtype)
+    else:
+        x = L.LAYOUT.embed(emb, tokens)
+    return L.LAYOUT.residual(x, like=tokens)
 
 
 def _block_train(cfg: ArchConfig, kind: int, positions, x, blk):
@@ -334,17 +341,51 @@ def _block_train(cfg: ArchConfig, kind: int, positions, x, blk):
     return x, a
 
 
+_SAVED_NAMES = {"tp-save": "tp_out", "moe-save": "moe_out"}
+_NAMING: list[str] = []
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Mark ``x`` as ``name`` for a selective remat policy (the JAX
+    package's ``checkpoint_name``).  Under a policy that saves names the
+    marker is a copy the policy can see; otherwise ``x`` itself.  It
+    never changes a number."""
+    if REMAT_POLICY not in _SAVED_NAMES:
+        return x
+    _NAMING.append(name)
+    try:
+        return x.clone()
+    finally:
+        _NAMING.pop()
+
+
+def _policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if REMAT_POLICY == "dots":
+        save = op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+    else:
+        save = (op is torch.ops.aten.clone.default and bool(_NAMING)
+                and _NAMING[-1] == _SAVED_NAMES[REMAT_POLICY])
+    return (CheckpointPolicy.MUST_SAVE if save
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat_wrap(body):
-    if REMAT_POLICY not in ("full", "none"):
-        raise NotImplementedError(f"REMAT_POLICY {REMAT_POLICY!r} "
-                                  f"{_DISTRIBUTION_SLICE}")
+    if REMAT_POLICY not in ("full", "none", "dots", "tp-save", "moe-save"):
+        raise ValueError(f"unknown REMAT_POLICY {REMAT_POLICY!r}")
     if REMAT_POLICY == "none" or not torch.is_grad_enabled():
         return body
-    return functools.partial(checkpoint, body, use_reentrant=False)
+    if REMAT_POLICY == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return functools.partial(
+        checkpoint, body, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _policy))
 
 
 def _backbone(cfg: ArchConfig, params, x, positions, remat: bool = True):
-    kinds = layer_kinds(cfg).tolist()
+    kinds = layer_kinds(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         body = functools.partial(_block_train, cfg, kinds[i], positions)
@@ -372,13 +413,6 @@ def forward(cfg: ArchConfig, params, batch, remat: bool = True):
 # Loss
 # ---------------------------------------------------------------------
 
-def _nll_sum(logits, labels, mask):
-    """Sum of the masked next-token negative log-likelihoods."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
-    return (nll * mask).sum()
-
-
 def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
     """Mean next-token cross-entropy over ``labels >= 0`` plus 0.01 x the
     MoE aux loss -> (total, {"loss", "aux"})."""
@@ -401,25 +435,86 @@ def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
             sl = slice(i * csz, (i + 1) * csz)
             if x[:, sl].shape[1] == 0:
                 continue
-            nll_sum = nll_sum + _nll_sum(L.mm(x[:, sl], head),
-                                         labels[:, sl], mask[:, sl])
+            nll_sum = nll_sum + L.LAYOUT.nll_sum(
+                L.mm(x[:, sl], head), labels[:, sl], mask[:, sl])
         loss = nll_sum / denom
     else:
         logits, aux = forward(cfg, params, batch, remat)
-        loss = _nll_sum(logits, labels, mask) / denom
+        loss = L.LAYOUT.nll_sum(logits, labels, mask) / denom
     return loss + 0.01 * aux, dict(loss=loss, aux=aux)
 
 
-def param_logical(cfg: ArchConfig):
-    raise NotImplementedError(f"param_logical {_DISTRIBUTION_SLICE}")
+def _attn_logical(cfg: ArchConfig):
+    p = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        p.update({"bq": ("heads",), "bk": ("kv_heads",),
+                  "bv": ("kv_heads",)})
+    return p
 
 
-def input_specs(cfg: ArchConfig, shape, *args, **kwargs):
-    raise NotImplementedError(f"input_specs {_DISTRIBUTION_SLICE}")
+def param_logical(cfg: ArchConfig) -> PyTree:
+    """The params' tree with each leaf's logical axis names (the JAX
+    package's tree: ``distribution/sharding.py`` maps them to a mesh)."""
+    def stacked(tree):
+        return {k: ("layers",) + v for k, v in tree.items()}
+
+    blk: dict = {"ln1": ("layers", "embed"), "ln2": ("layers", "embed")}
+    if not cfg.attention_free:
+        blk["attn"] = stacked(_attn_logical(cfg))
+    if cfg.family == "moe":
+        blk["moe"] = stacked(MOE.moe_logical(cfg.mlp))
+    elif cfg.d_ff > 0:
+        blk["mlp"] = stacked(L.mlp_logical(cfg.mlp))
+    if cfg.ssm is not None:
+        blk["ssm"] = stacked(SSM.ssm_logical())
+    out = {"embed": ("vocab", "embed"), "ln_f": ("embed",),
+           "blocks": blk}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("embed", "vocab")
+    if cfg.prefix_patches:
+        out["patch_proj"] = ("embed", "embed2")
+    return out
 
 
-def param_specs(cfg: ArchConfig, *args, **kwargs):
-    raise NotImplementedError(f"param_specs {_DISTRIBUTION_SLICE}")
+def param_specs(cfg: ArchConfig, dtype=torch.bfloat16) -> PyTree:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    storage), quantized as serving would when ``QUANT_BITS`` is set."""
+    p = init_params(cfg, generator=L.MetaDraw(dtype))
+    return quantize_for_serving(p, QUANT_BITS) if QUANT_BITS else p
+
+
+def input_specs(cfg: ArchConfig, shape, param_dtype=torch.bfloat16) -> dict:
+    """A cell's model inputs as ``meta`` tensors: ``batch`` (train,
+    prefill), ``token`` and ``pos`` (decode) and the bf16 ``cache``
+    (prefill, decode)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def f(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    out: dict = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.input_mode == "embeddings":
+            batch = {"embeds": f((b, s, cfg.d_model), param_dtype)}
+        else:
+            toks = s - cfg.prefix_patches
+            batch = {"tokens": f((b, toks), torch.int32)}
+            if cfg.prefix_patches:
+                batch["patches"] = f((b, cfg.prefix_patches, cfg.d_model),
+                                     param_dtype)
+        if shape.kind == "train":
+            batch["labels"] = f((b, s if cfg.input_mode == "embeddings"
+                                 else s - cfg.prefix_patches), torch.int32)
+        out["batch"] = batch
+    else:
+        out["token"] = (f((b, 1, cfg.d_model), param_dtype)
+                        if cfg.input_mode == "embeddings"
+                        else f((b, 1), torch.int32))
+        out["pos"] = f((), torch.int32)
+    if shape.kind != "train":
+        out["cache"] = init_cache(cfg, b, s, torch.bfloat16, device="meta")
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -456,7 +551,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int,
 def _serve_scan(cfg: ArchConfig, params, x, positions, cache, pos):
     """The layers over ``x`` with each layer's cache slice updated in
     place; returns (x, cache)."""
-    kinds = layer_kinds(cfg).tolist()
+    kinds = layer_kinds(cfg)
     for i in range(cfg.n_layers):
         lc = {}
         if "kv" in cache:

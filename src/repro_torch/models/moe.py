@@ -18,11 +18,23 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import layers as L
 from .layers import mm
 
-def _constrain(x, spec):
-    """A sharding constraint in the JAX package; a no-op here."""
-    return x
+# The dispatch buffer's (e*cap, d) layout as a pspec (the dry-run's
+# --variant moe-shard sets ("data", None)): None leaves it as its
+# operands make it; ("data", None) shards the capacity rows.  It applies
+# only under a mesh (``distribution/layout.py``).
+DISPATCH_SPEC = None
+
+
+def moe_logical(mlp_kind: str):
+    p = {"router": ("embed", "experts"),
+         "wi": ("experts", "embed", "mlp"),
+         "wo": ("experts", "mlp", "embed")}
+    if mlp_kind == "swiglu":
+        p["wg"] = ("experts", "embed", "mlp")
+    return p
 
 
 def moe_init(draw, d, ff, n_experts, mlp_kind, lead=()):
@@ -70,8 +82,8 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float,
 
     # GShard dispatch: per top-k slot, position-in-expert via cumsum.
     # Row e * cap collects the dropped tokens and is cut off after.
-    buf = _constrain(torch.zeros((e * cap + 1, d), dtype=xt.dtype,
-                                 device=dev), None)
+    buf = L.LAYOUT.constrain(L.LAYOUT.dispatch_buffer(xt, e * cap + 1),
+                             DISPATCH_SPEC)
     locs = []
     counts = torch.zeros((e,), dtype=torch.int32, device=dev)
     for slot in range(top_k):
@@ -82,10 +94,10 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float,
         pos_tok = (pos * onehot).sum(-1)                      # (N,)
         ok = pos_tok < cap
         idx = torch.where(ok, gate_idx[:, slot] * cap + pos_tok, e * cap)
-        buf.index_add_(0, idx, xt)
+        buf = L.LAYOUT.scatter_add(buf, idx, xt, DISPATCH_SPEC)
         locs.append((idx, ok))
 
-    he = buf[: e * cap].reshape(e, cap, d)
+    he = L.LAYOUT.pin(buf[: e * cap].reshape(e, cap, d))
     if mlp_kind == "swiglu":
         hid = F.silu(torch.einsum("ecd,edf->ecf", he, params["wg"])) \
             * torch.einsum("ecd,edf->ecf", he, params["wi"])
@@ -97,7 +109,8 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float,
 
     y = torch.zeros_like(xt)
     for slot, (idx, ok) in enumerate(locs):
-        gathered = out_flat[torch.clamp_max(idx, e * cap - 1)]
+        gathered = L.LAYOUT.take_rows(out_e, out_flat,
+                                      torch.clamp_max(idx, e * cap - 1))
         w = (gate_vals[:, slot] * ok).to(y.dtype)
         y = y + gathered * w[:, None]
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from . import layers as L
+
 # parameter names that get quantized (2D+ matmul weights)
 QUANT_KEYS = {"embed", "lm_head", "patch_proj", "wq", "wk", "wv", "wo",
               "wi", "wg", "in_proj", "out_proj"}
@@ -34,14 +36,20 @@ def _quantize_leaf(w, w_bits: int):
     return {"q": q, "s": scale}
 
 
+def _unpack4(q: torch.Tensor) -> torch.Tensor:
+    """Packed int4 rows (..., R, C) -> int32 (..., 2R, C)."""
+    q32 = q.to(torch.int32)
+    lo = (q32 << 28) >> 28          # sign-extended low nibble
+    hi = q32 >> 4
+    return torch.stack([lo, hi], dim=-2).reshape(
+        *q.shape[:-2], q.shape[-2] * 2, q.shape[-1])
+
+
 def dequant_leaf(leaf, w_bits: int, dtype=torch.bfloat16):
     q = leaf["q"]
     if w_bits == 4:
-        q32 = q.to(torch.int32)
-        lo = (q32 << 28) >> 28          # sign-extended low nibble
-        hi = q32 >> 4
-        q = torch.stack([lo, hi], dim=-2).reshape(
-            *q.shape[:-2], q.shape[-2] * 2, q.shape[-1])
+        # a split of the packed rows is the same split of the unpacked
+        q = L.LAYOUT.per_shard(_unpack4, q)
     return (q.float() * leaf["s"]).to(dtype)
 
 
@@ -65,6 +73,16 @@ def quantize_params(params, w_bits: int = 8):
             return _quantize_leaf(v, w_bits)
         return v
     return _walk(params, fn)
+
+
+def quantize_logical(logical):
+    """Transform the logical-axis tree alongside :func:`quantize_params`:
+    a bundle's ``s`` keeps the output axis (a size-1 dim before it)."""
+    def fn(k, v):
+        if k in QUANT_KEYS and isinstance(v, tuple) and len(v) >= 2:
+            return {"q": v, "s": v[:-2] + (None, v[-1])}
+        return v
+    return _walk(logical, fn)
 
 
 def dequant_tree(tree, w_bits: int = 8, dtype=torch.bfloat16):

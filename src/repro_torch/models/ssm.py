@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SsmConfig
+from . import layers as L
 from .layers import mm
 
 
@@ -43,6 +44,13 @@ def ssm_init(draw, d_model, ssm: SsmConfig, lead=()):
     }
 
 
+def ssm_logical():
+    return {"in_proj": ("embed", "ssm_inner"), "conv_w": (None, "ssm_inner"),
+            "conv_b": ("ssm_inner",), "a_log": ("ssm_heads",),
+            "d_skip": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "norm": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")}
+
+
 def _split(params, d_in, n, nh, proj):
     return torch.split(proj, [d_in, d_in, n, n, nh], dim=-1)
 
@@ -50,7 +58,9 @@ def _split(params, d_in, n, nh, proj):
 def _causal_conv(x, w, b):
     """Depthwise causal conv, kernel k: x (B, S, C), w (k, C)."""
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    # zeros in front by a concatenation, not F.pad: the same values, and
+    # a layout DTensor keeps under a mesh
+    xp = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
     return out + b
 
@@ -59,7 +69,7 @@ def _segsum_chunk(dA):
     """dA (..., Q) -> cumulative log-decay L (..., Q, Q), lower-triangular
     (``-inf`` above the diagonal)."""
     q = dA.shape[-1]
-    cs = torch.cumsum(dA, dim=-1)
+    cs = L.LAYOUT.cumsum(dA)
     diff = cs[..., :, None] - cs[..., None, :]          # seg[i] - seg[j]
     i = torch.arange(q, device=dA.device)
     mask = i[:, None] >= i[None, :]
@@ -98,7 +108,7 @@ def ssd_scan(xh, dt, a_log, bmat, cmat, chunk: int):
                            dtx.float())
 
     # chunk summaries -> inter-chunk recurrence
-    seg = torch.cumsum(dAh, dim=-1)                     # (b,nc,nh,q)
+    seg = L.LAYOUT.cumsum(dAh)                          # (b,nc,nh,q)
     decay_to_end = torch.exp(seg[..., -1:] - seg)       # (b,nc,nh,q)
     s_chunk = torch.einsum("bchk,bckn,bckhp->bchpn", decay_to_end,
                            bc.float(), dtx.float())     # (b,nc,nh,p,n)
@@ -160,7 +170,7 @@ def ssm_block(params, x, ssm: SsmConfig, state=None, conv_state=None):
         dbx = torch.einsum("bn,bhp,bh->bhpn", bmat[:, 0].float(),
                            xh[:, 0].float(), dt[:, 0].float())
         new_state = state * dA[..., None, None] + dbx
-        y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].float(), new_state)
+        y = L.LAYOUT.ssm_readout(cmat[:, 0], new_state)
         y = y[:, None]                                  # (B,1,nh,p)
     else:
         y, new_state = ssd_scan(xh, dt, params["a_log"], bmat, cmat,

@@ -227,10 +227,26 @@ def run_chaos_scenario(cfg, params, planner,
     under ``trace["chaos"]``.  Deterministic end to end: the golden
     chaos trace pins the whole record.  ``prefill_scope`` /
     ``decode_scope`` (require ``disagg``) give each cell its own ladder
-    and breaker.  ``device`` is the model's (default: the card); the
-    lane mesh (``mesh``) is not ported and raises
-    ``NotImplementedError``.
+    and breaker.  ``device`` is the model's (default: the card).
+    ``mesh``: a lane mesh for the run (as ``scenarios.run_scenario``
+    takes it); the timeline is armed against the ladder it adds.
     """
+    from repro_torch.core import engine
+    executor = getattr(getattr(planner, "sim", None), "executor", None)
+    with engine.lane_mesh_scope(engine.lane_mesh_on(
+            mesh, getattr(executor, "device", None) or device)):
+        return _run_chaos(cfg, params, planner, scenario, seed, quick,
+                          slots, policy, fence, timeline,
+                          breaker_threshold, retries, disagg, slo,
+                          spec_decode, policy_kw, prefill_scope,
+                          decode_scope, device)
+
+
+def _run_chaos(cfg, params, planner, scenario, seed, quick, slots, policy,
+               fence, timeline, breaker_threshold, retries, disagg, slo,
+               spec_decode, policy_kw, prefill_scope, decode_scope,
+               device) -> dict:
+    from repro_torch.core import engine
     spec = scenario if scenario is not None else \
         make_scenario("chaos", seed=seed, slots=slots, quick=quick)
     if timeline is None:
@@ -241,7 +257,8 @@ def run_chaos_scenario(cfg, params, planner,
                 faults.retry_scope(retries=retries, clock=clock):
             trace = run_scenario(
                 spec, cfg, params, planner, policy=policy, fence=fence,
-                policy_kw=policy_kw, mesh=mesh, disagg=disagg, slo=slo,
+                policy_kw=policy_kw, mesh=engine.lane_mesh(),
+                disagg=disagg, slo=slo,
                 spec_decode=spec_decode, prefill_scope=prefill_scope,
                 decode_scope=decode_scope, on_tick=on_tick, device=device)
     finally:

@@ -40,8 +40,9 @@ a recorded trace's occupancy (``tests/golden/serve_trace.json``,
 through the monolithic ``ServingEngine`` or the disaggregated cells
 (``serving/cells.py``), optionally autoscaled and with per-cell backend
 scopes, and emit a replayable trace; the serving goldens under
-``tests/golden/`` pin one trace of each engine shape.  The lane mesh is
-not ported (Queue 1 item 8) and raises ``NotImplementedError``.
+``tests/golden/`` pin one trace of each engine shape.  Under a lane mesh
+(``mesh=``) the planner's lanes resolve on the mesh rung, and the trace
+must not change.
 """
 from __future__ import annotations
 
@@ -831,13 +832,25 @@ def run_scenario(scenario: ScenarioSpec, cfg, params, planner,
     :class:`~repro_torch.core.engine.BackendScope`.  ``on_tick`` is
     called as ``fn(t, engine)`` at the top of every serve tick (the chaos
     harness fires its timeline there).  ``device`` is the model's
-    (default: the card).  The lane mesh (``mesh``) is not ported and
-    raises ``NotImplementedError``.
+    (default: the card).  ``mesh`` — a lane mesh for the run (an
+    ``int`` n: n shards of the planner's device; or a 1-D list of
+    devices; see ``engine.configure_lane_mesh``): the run's lane
+    resolutions go through the mesh rung.  Mesh resolution is
+    bit-identical, so the trace must not change.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the lane mesh (mesh=) is not ported to repro_torch yet "
-            "(Queue 1 item 8 of the port's queue)")
+    from repro_torch.core.engine import lane_mesh_on, lane_mesh_scope
+    executor = getattr(getattr(planner, "sim", None), "executor", None)
+    mesh = lane_mesh_on(mesh, getattr(executor, "device", None) or device)
+    with lane_mesh_scope(mesh):
+        return _run_scenario(scenario, cfg, params, planner, policy, fence,
+                             max_seq, policy_kw, disagg, slo, spec_decode,
+                             autoscale, prefill_scope, decode_scope,
+                             on_tick, device)
+
+
+def _run_scenario(scenario, cfg, params, planner, policy, fence, max_seq,
+                  policy_kw, disagg, slo, spec_decode, autoscale,
+                  prefill_scope, decode_scope, on_tick, device) -> dict:
     from .engine import Request, ServingEngine
     from .policy import OffloadController
 

@@ -17,8 +17,10 @@ Guarantees:
     the training thread and writes it on a background thread;
   * restore onto a device: ``restore(..., device=)`` places each leaf on
     ``device`` (default: the device of the matching leaf of
-    ``tree_like``).  Restoring onto a sharded layout (``shardings=``)
-    belongs to the lane-mesh / distribution slice and raises.
+    ``tree_like``);
+  * elastic restore: ``restore(..., shardings=)`` takes the *target*
+    layout, ``(DeviceMesh, placements)`` per leaf, so a checkpoint
+    written on one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -84,11 +86,10 @@ def restore(ckpt_dir, tree_like, step: int | None = None,
     """Load into the structure of ``tree_like`` (tensors, or anything
     with ``.shape``); each leaf goes to ``device``, or else to its
     ``tree_like`` leaf's device (the CPU for a leaf that is no tensor).
-    Returns ``(tree, manifest)``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=) re-shards onto a device mesh, which "
-            "belongs to the lane-mesh / distribution slice; pass device=")
+    ``shardings``: a tree like ``tree_like`` of ``(DeviceMesh,
+    placements)`` pairs (or ``sharding.NamedSharding`` objects), or one pair
+    for every leaf; each leaf is then placed with ``distribute_tensor``
+    on its mesh's device type.  Returns ``(tree, manifest)``."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -103,10 +104,48 @@ def restore(ckpt_dir, tree_like, step: int | None = None,
         if list(arr.shape) != list(ref.shape):
             raise ValueError(f"{name}: ckpt {arr.shape} vs model "
                              f"{tuple(ref.shape)}")
+        if shardings is not None:
+            out.append(place_sharded(torch.from_numpy(arr),
+                                     _at_path(shardings, path)))
+            continue
         dev = device if device is not None else (
             ref.device if isinstance(ref, torch.Tensor) else "cpu")
         out.append(torch.from_numpy(arr).to(dev))
     return tree_unflatten(tree_like, out), manifest
+
+
+def _is_sharding(x) -> bool:
+    return callable(getattr(x, "placements", None)) or (
+        isinstance(x, tuple) and len(x) == 2
+        and hasattr(x[0], "mesh_dim_names"))
+
+
+def _at_path(shardings, path):
+    """The sharding of the leaf at ``path`` (a key path of
+    ``tree_flatten_with_path``) in a tree of shardings, or the one
+    sharding given for every leaf."""
+    node = shardings
+    for key in path:
+        if _is_sharding(node):
+            break
+        if key.startswith("."):
+            node = getattr(node, key[1:])
+        elif isinstance(node, dict):
+            node = node[key]
+        else:
+            node = node[int(key)]
+    return node
+
+
+def place_sharded(t: torch.Tensor, sharding):
+    """``t`` as a DTensor: ``sharding`` is ``(DeviceMesh, placements)`` or
+    a ``sharding.NamedSharding``."""
+    from torch.distributed.tensor import distribute_tensor
+    if callable(getattr(sharding, "placements", None)):
+        mesh, placements = sharding.mesh, sharding.placements()
+    else:
+        mesh, placements = sharding
+    return distribute_tensor(t.to(mesh.device_type), mesh, placements)
 
 
 class AsyncCheckpointer:

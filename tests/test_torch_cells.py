@@ -41,6 +41,8 @@ from repro_torch.serving import cells, scenarios as scen
 from repro_torch.serving.engine import Request
 from repro_torch.serving.offload import OffloadPlanner
 
+from test_torch_lane_mesh import backend_rungs, one_torch_thread, rung_runs
+
 BOTH = ((faults, engine), (ref_faults, ref_engine))
 
 
@@ -314,9 +316,10 @@ def test_autoscaled_trace_replays_through_simulator(small_lm):
     assert roundtrip(replayed) == trace
 
 
-def test_scenario_errors_equal(small_lm):
+def test_scenario_errors_equal(small_lm, monkeypatch):
     """Scopes or autoscaling without the cells raise ``ValueError`` as in
-    the JAX package; the lane mesh is not ported and names its item."""
+    the JAX package; the cells under a lane mesh resolve their lanes on
+    the mesh rung and give the trace they give on the scan rung."""
     rcfg, cfg, rparams, params = small_lm
     msgs = []
     for mod, eng, model, planner, kw in (
@@ -330,9 +333,19 @@ def test_scenario_errors_equal(small_lm):
                 mod.run_scenario(spec, *model, planner, **bad, **kw)
             msgs.append(str(e.value))
     assert msgs[:2] == msgs[2:]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scen.run_scenario(spec, cfg, params, planners()[0], mesh=2,
-                          disagg=True, device="cpu")
+    with one_torch_thread():
+        ran = rung_runs(monkeypatch)
+        engine.lane_cache_reset()
+        plain = roundtrip(scen.run_scenario(spec, cfg, params, planners()[0],
+                                            disagg=True, device="cpu"))
+        assert backend_rungs(ran) == {"backend.scan"}
+        engine.lane_cache_reset()
+        ran.clear()
+        meshed = roundtrip(scen.run_scenario(spec, cfg, params, planners()[0],
+                                             mesh=2, disagg=True, device="cpu"))
+        assert backend_rungs(ran) == {"backend.mesh"}
+    assert meshed == plain
+    assert engine.lane_mesh() is None, "the mesh scope must not leak"
 
 
 @pytest.mark.parametrize("disagg", [False, True])

@@ -19,6 +19,7 @@ drain under chaos leaves nothing unhandled, hard shutdown accounts for
 every request, and ``TraceWriter`` streams reassemble the in-memory
 trace while corrupt streams are refused as the JAX package refuses them.
 """
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -47,6 +48,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving import chaos, scenarios as scen
 from repro_torch.serving.daemon import ServeDaemon, TraceWriter
 from repro_torch.serving.offload import OffloadPlanner
+
+from test_torch_lane_mesh import backend_rungs, one_torch_thread, rung_runs
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "chaos_trace.json"
 GOLDEN_SCENARIO = dict(name="chaos", seed=5, slots=4, quick=True)
@@ -242,7 +245,7 @@ def test_chaos_run_equals_healthy_baseline_on_two_rungs(small_lm,
     assert strip[0] == strip[1]
 
 
-def test_scoped_chaos_records_scope_breakers(small_lm):
+def test_scoped_chaos_records_scope_breakers(small_lm, monkeypatch):
     _rcfg, cfg, _rparams, params = small_lm
     spec = scen.ScenarioSpec(name="chaos", seed=0, slots=2, arrivals=())
     pre = engine.BackendScope(name="prefill")
@@ -255,9 +258,34 @@ def test_scoped_chaos_records_scope_breakers(small_lm):
     assert trace["chaos"]["timeline"]
     assert set(trace["chaos"]["scope_breakers"]) == {"prefill", "decode"}
     assert trace["disagg"]["scopes"]["decode"]["rungs"] == ["scan"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        chaos.run_chaos_scenario(cfg, params, smoke_planner(),
-                                 scenario=spec, mesh=2, device="cpu")
+    # the quick chaos scenario's first six requests under a lane mesh
+    # (cold caches both): the lanes resolve on the mesh rung, the
+    # timeline is armed against the mesh rung's site, and the rest of
+    # the trace is the run's without a mesh
+    quick = scen.make_scenario("chaos", seed=0, quick=True)
+    spec = dataclasses.replace(quick, arrivals=quick.arrivals[:6])
+    with one_torch_thread():
+        ran = rung_runs(monkeypatch)
+        runs = []
+        for mesh in (None, 2):
+            engine.lane_cache_reset()
+            faults.reset()
+            ran.clear()
+            runs.append(roundtrip(chaos.run_chaos_scenario(
+                cfg, params, smoke_planner(), scenario=spec, mesh=mesh,
+                device="cpu")))
+            # (the timeline's faults step the mesh down to the scan rung)
+            assert backend_rungs(ran) == ({"backend.mesh", "backend.scan"}
+                                          if mesh else {"backend.scan"})
+    plain, meshed = runs
+    assert engine.lane_mesh() is None, "the mesh scope must not leak"
+    assert plain["steps"] > 0
+    assert {k: v for k, v in meshed.items() if k != "chaos"} == \
+        {k: v for k, v in plain.items() if k != "chaos"}
+    sites = {a["action"] for a in meshed["chaos"]["timeline"]
+             if a["action"].startswith("backend.")}
+    assert "backend.mesh" in sites and sites <= {"backend.mesh",
+                                                 "backend.scan"}
 
 
 # ---------------------------------------------------------------------
@@ -530,6 +558,6 @@ def test_launcher_disagg_and_chaos_modes(table_resolver, capsys):
     for bad in (["--slo", "0.5", "--requests", "2"],
                 ["--autoscale", "--scenario", "bursty"],
                 ["--trace-out", "x.jsonl", "--scenario", "bursty"],
-                ["--daemon"], ["--mesh", "2"]):
+                ["--daemon"], ["--mesh", "0"]):
         with pytest.raises(SystemExit):
             _launch(bad, capsys)

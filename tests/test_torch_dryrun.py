@@ -6,8 +6,10 @@ the arch's smoke config under its name in both packages' registries
 full width runs on the card).  The records must be ``==`` after a JSON
 round trip, with and without ``--scenario``, ``--disagg`` and the
 ``spec-decode`` scenario, and the CLIs must print the same lines.  The
-port refuses the dry-run's cell lowering and the lane mesh with an
-error naming the slice they belong to.
+CLI's other modes run at smoke size: cell lowering (``--shape``,
+``--mesh pod1|pod2``, ``--variant``, ``--extrap-only``, ``--all
+--skip-existing``) on the fake 512-rank mesh, and ``--pim --mesh 4`` on
+a lane mesh of four CPU shards, whose report equals the reference's.
 
 ``tests/golden/torch_pim_report.json`` is the JAX package's report for
 granite-8b at its published widths (``bursty`` x ``hysteresis``,
@@ -16,6 +18,7 @@ Regenerate it deliberately with
 ``PYTHONPATH=src python tests/test_torch_dryrun.py`` (a few minutes).
 """
 import ast
+import dataclasses
 import contextlib
 import io
 import json
@@ -32,6 +35,7 @@ from repro.configs import smoke_config as ref_smoke
 from repro.core import engine as ref_engine
 
 from repro_torch.configs import ARCHS, smoke_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.specfam import SPEC_FAMILIES
 from repro_torch.core import engine, faults
 from repro_torch.launch import dryrun as PD
@@ -39,7 +43,6 @@ from repro_torch.serving.offload import decode_gemv_sites
 
 FIXTURE = pathlib.Path(__file__).parent / "golden" / "torch_pim_report.json"
 FIXTURE_ARGS = dict(scenario="bursty", policy="hysteresis", disagg=True)
-SLICE = "lane-mesh / distribution slice"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,6 +90,18 @@ def both(monkeypatch, tmp_path):
     ref_engine.lane_cache_reset()
 
 
+_REF_REPORTS: dict = {}
+
+
+def _ref_report(rd, arch: str, **kw) -> dict:
+    """The reference's report at smoke width, computed once a module for
+    each (arch, options): the smoke registries are the same each time."""
+    key = (arch, tuple(sorted(kw.items())))
+    if key not in _REF_REPORTS:
+        _REF_REPORTS[key] = _roundtrip(rd.pim_offload_report(arch, **kw))
+    return _REF_REPORTS[key]
+
+
 def _smoke_registries(monkeypatch, rd, arch):
     monkeypatch.setattr(rd, "ARCHS", {arch: ref_smoke(REF_ARCHS[arch])})
     monkeypatch.setattr(PD, "ARCHS", {arch: smoke_config(ARCHS[arch])})
@@ -107,7 +122,7 @@ CASES = [
 def test_report_equals_reference(both, monkeypatch, tmp_path, arch, kw):
     rd, pd = both
     _smoke_registries(monkeypatch, rd, arch)
-    want = _roundtrip(rd.pim_offload_report(arch, **kw))
+    want = _ref_report(rd, arch, **kw)
     got = pd.pim_offload_report(arch, device="cpu", **kw)
     assert _roundtrip(got) == want
     assert sorted(got) == sorted(want)
@@ -139,21 +154,69 @@ def test_cli_prints_the_reference_lines(both, monkeypatch):
     assert len(lines) == 3 + len(SPEC_FAMILIES)
 
 
+SMALL_SHAPES = {"train_4k": ShapeConfig("train_4k", 128, 32, "train"),
+                "prefill_32k": ShapeConfig("prefill_32k", 256, 32,
+                                           "prefill"),
+                "decode_32k": ShapeConfig("decode_32k", 256, 32, "decode")}
+
+
 @pytest.mark.parametrize("argv,names", [
-    (["--arch", "granite-8b", "--shape", "train_4k"], "--shape"),
-    (["--all"], "only --pim runs"),
-    (["--pim", "--arch", "granite-8b", "--mesh", "4"], "--mesh 4"),
-    (["--pim", "--all", "--mesh", "both"], "--mesh both"),
-    (["--pim", "--all", "--variant", "remat-dots"], "--variant remat-dots"),
-    (["--pim", "--all", "--extrap-only"], "--extrap-only"),
-    (["--pim", "--all", "--skip-existing"], "--skip-existing"),
+    (["--arch", "granite-8b", "--shape", "decode_32k"],
+     (0, "[ok] granite-8b decode_32k pod1")),
+    (["--all", "--skip-existing"], (0, "[skip] granite-8b train_4k pod1")),
+    (["--pim", "--arch", "granite-8b", "--mesh", "4"],
+     (0, "[pim] lane mesh: 4 shard(s) of cpu")),
+    (["--pim", "--all", "--mesh", "both"],
+     (2, "--pim takes an integer --mesh N")),
+    (["--arch", "granite-8b", "--shape", "decode_32k", "--variant",
+      "serve-tp-w8"], (0, "[ok] granite-8b decode_32k pod1")),
+    (["--arch", "granite-8b", "--shape", "decode_32k", "--extrap-only"],
+     (0, "[extrap] granite-8b decode_32k pod1")),
+    (["--arch", "granite-8b", "--shape", "decode_32k", "--mesh", "pod2"],
+     (0, "[ok] granite-8b decode_32k pod2")),
 ])
-def test_cli_refuses_cell_lowering_and_the_lane_mesh(capsys, argv, names):
+def test_cli_refuses_cell_lowering_and_the_lane_mesh(both, monkeypatch,
+                                                      tmp_path, capsys, argv,
+                                                      names):
+    """Every mode of the CLI runs (smoke configs, shapes cut to smoke
+    size); a pod mesh with ``--pim`` is refused as the reference refuses
+    it.  ``--pim --mesh 4`` gives the reference's report."""
+    rd, pd = both
+    _smoke_registries(monkeypatch, rd, "granite-8b")
+    if argv[0] != "--pim":          # lowering: one layer is enough
+        monkeypatch.setitem(pd.ARCHS, "granite-8b", dataclasses.replace(
+            pd.ARCHS["granite-8b"], n_layers=1))
+    for name, shp in SMALL_SHAPES.items():
+        monkeypatch.setitem(pd.SHAPES, name, shp)
+    monkeypatch.setitem(pd.SHAPES, "long_500k", pd.SHAPES["long_500k"])
+    code_want, text = names
+    if "--skip-existing" in argv:
+        for arch, shape in pd.all_cells():
+            path = pd._out_path(arch, shape, "pod1")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps({"status": "ok"}))
+    if "--extrap-only" in argv:
+        pd.run_cell("granite-8b", "decode_32k", False, extrapolate=False,
+                    device="cpu")
     with pytest.raises(SystemExit) as ex:
-        PD.main([*argv, "--device", "cpu"])
-    assert ex.value.code == 2
-    err = capsys.readouterr().err
-    assert names in err and SLICE in err
+        pd.main([*argv, "--device", "cpu"])
+    out = capsys.readouterr()
+    assert ex.value.code == code_want, out
+    assert text in (out.out if code_want == 0 else out.err)
+    assert engine.lane_mesh() is None
+    if "--variant" in argv:
+        rec = json.loads(pd._out_path("granite-8b", "decode_32k", "pod1",
+                                      "serve-tp-w8").read_text())
+        assert rec["status"] == "ok" and rec["variant"] == "serve-tp-w8"
+    if "--extrap-only" in argv:
+        rec = json.loads(pd._out_path("granite-8b", "decode_32k", "pod1")
+                         .read_text())
+        assert rec["extrap"]["probe_layers"] == [2, 4]
+    if argv[0] == "--pim" and code_want == 0:
+        want = _ref_report(rd, "granite-8b")
+        got = json.loads((tmp_path / "port" / "pim" / "granite-8b.json")
+                         .read_text())
+        assert got == want
 
 
 @pytest.mark.parametrize("argv,names", [
@@ -170,6 +233,8 @@ def test_cli_argument_errors(capsys, argv, names):
 
 
 def test_report_module_imports_no_distribution_code():
+    """The dry-run imports nothing of the JAX package or JAX: its
+    distribution, mesh and training code is the port's own."""
     tree = ast.parse(pathlib.Path(PD.__file__).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]
@@ -177,8 +242,9 @@ def test_report_module_imports_no_distribution_code():
               if isinstance(n, ast.ImportFrom) and n.module]
     assert names and all(n.split(".")[0] != "repro" and "jax" not in n
                          for n in names)
-    assert not [n for n in names if "distribution" in n
-                or "launch.mesh" in n or "training" in n]
+    assert all(n.startswith("repro_torch.") for n in names
+               if "distribution" in n or "launch.mesh" in n
+               or "training" in n)
 
 
 def test_pim_report_fixture_is_well_formed():

@@ -905,3 +905,62 @@ def test_pim_report_on_card_equals_cpu(dev, monkeypatch, tmp_path):
                                     policy="hysteresis", disagg=True,
                                     device="cpu")
     assert json.loads(json.dumps(card)) == json.loads(json.dumps(cpu))
+
+
+# ---------------------------------------------------------------------
+# Phase 12: the lane mesh and the cell lowering
+# ---------------------------------------------------------------------
+
+def test_lane_mesh_and_threaded_rungs_on_card(dev):
+    """The granite-8b plan's lanes on four shards of the card, and on the
+    threaded rung over two entries of it, equal the scan rung's, each
+    shard launching the kernel on its own stream."""
+    spec_pts = [(DEFAULT_SYSTEM.derive_cycles(), list(streams))
+                for streams in _granite_streams()]
+    solo = engine.resolve_fleet(spec_pts, device=dev)
+    engine.lane_cache_reset()
+    engine.MESH_SHARD_LAUNCHES.clear()
+    with engine.lane_mesh_scope(engine.build_lane_mesh(4, [dev] * 4)):
+        assert engine.ladder_rungs() == ["mesh", "scan"]
+        meshed = engine.resolve_fleet(spec_pts, device=dev)
+    assert sorted(engine.MESH_SHARD_LAUNCHES) == [0, 1, 2, 3]
+    engine.lane_cache_reset()
+    engine.configure_lane_devices([dev, dev])
+    try:
+        assert engine.ladder_rungs() == ["threaded", "scan"]
+        threaded = engine.resolve_fleet(spec_pts, device=dev)
+    finally:
+        engine.configure_lane_devices(None)
+    for a, b, c in zip(solo, meshed, threaded):
+        assert np.array_equal(a.totals, b.totals)
+        assert np.array_equal(a.totals, c.totals)
+        for ia, ib, ic in zip(a.issue, b.issue, c.issue):
+            assert np.array_equal(ia, ib) and np.array_equal(ia, ic)
+
+
+def _granite_streams():
+    """The granite-8b W8A8 decode plan's command streams, per GEMV."""
+    ex = PimExecutor(device="cpu")
+    sites = [GemvRequest.pim(h, w, PimDType.W8A8, fence=True)
+             for h, w in ((4096, 4096), (1024, 4096), (14336, 4096))]
+    return [ex.plan_many([r])[0].streams for r in sites]
+
+
+def test_pim_report_on_card_under_lane_mesh(dev):
+    from repro_torch.launch import dryrun
+    fx = json.loads((GOLDEN / "torch_pim_report.json").read_text())
+    with engine.lane_mesh_scope(engine.build_lane_mesh(4, [dev] * 4)):
+        rec = dryrun.pim_offload_report("granite-8b", scenario="bursty",
+                                        policy="hysteresis", disagg=True,
+                                        device=dev)
+    assert json.loads(json.dumps(rec)) == fx
+
+
+def test_cell_lowers_on_cuda_fake_tensors(dev):
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell("granite-8b", "decode_32k", False, save=False,
+                          extrapolate=False, device=dev)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["device_type"] == "cuda" and rec["chips"] == 256
+    assert not dist.is_initialized()

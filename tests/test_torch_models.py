@@ -295,6 +295,32 @@ def test_flash_attention_equal(window, skip):
     _close(routed, rrouted)
 
 
+@pytest.mark.parametrize("blocks", [None, 1, 2])
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("window", [None, 5])
+def test_flash_attention_in_query_chunks_equal(window, skip, blocks,
+                                               monkeypatch):
+    """``FLASH_CHUNK_SCORES`` cut to ``blocks`` query blocks' scores: the
+    query blocks advance in chunks (5 blocks: chunks of 1, or 2, 2, 1;
+    ``None``: all at once), and the result is the JAX package's and the
+    one-chunk result."""
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((2, 37, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 37, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 37, 2, 16)).astype(np.float32)
+    monkeypatch.setattr(L, "FLASH_SKIP_BLOCKS", skip)
+    monkeypatch.setattr(RL, "FLASH_SKIP_BLOCKS", skip)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    whole = L.flash_attention(*args, window=window, block_q=8, block_k=16)
+    monkeypatch.setattr(L, "FLASH_CHUNK_SCORES",
+                        blocks and blocks * 2 * 4 * 8 * 16)
+    got = L.flash_attention(*args, window=window, block_q=8, block_k=16)
+    want = RL.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              window=window, block_q=8, block_k=16)
+    _close(got, want)
+    _close(got, whole.numpy())
+
+
 @pytest.mark.parametrize("drop_tokens", [False, True])
 @pytest.mark.parametrize("kind", ["swiglu", "gelu"])
 def test_moe_equal_with_ties(kind, drop_tokens):

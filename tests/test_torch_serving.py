@@ -58,6 +58,7 @@ from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.offload import (GemvSite, OffloadDecision,
                                          OffloadPlanner)
 
+from test_torch_lane_mesh import backend_rungs, one_torch_thread, rung_runs
 from test_torch_warmstart import port_entries
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
@@ -588,22 +589,44 @@ def test_launcher_modes_and_warm_start(full_width_plan, tmp_path, capsys,
     assert "speedup" in mono and ",misses=0," in mono
 
 
-def test_unported_serving_modes_raise(smoke_model):
-    """The lane mesh is the one serving mode not ported (Queue 1 item 8):
-    ``run_scenario``, ``replay_trace`` and the launcher refuse it before
-    any planning."""
+def test_unported_serving_modes_raise(smoke_model, full_width_plan,
+                                      capsys, monkeypatch):
+    """The lane mesh in serving: ``run_scenario`` of the autoscaled
+    cells on a cold smoke-size planner resolves its lanes on the mesh
+    rung under ``mesh=2`` and gives the trace it gives on the scan rung
+    without one; ``serve_trace.json`` replays unchanged through
+    ``replay_trace(..., mesh=2)`` on the full-width plan's imported lanes
+    (as the JAX package's
+    ``test_golden_trace_replays_bit_identically_on_mesh``; the cells'
+    and chaos's meshes are in ``tests/test_torch_{cells,chaos_daemon}
+    .py``), and the launcher's ``--mesh 2`` serves; no mesh scope
+    outlives its run."""
     _rcfg, cfg, _rparams, params = smoke_model
-    planner = StubPlanner([])
     spec = scen.make_scenario("bursty", seed=0, quick=True)
-    for kw in (dict(), dict(disagg=True),
-               dict(disagg=scen.DisaggConfig(),
-                    autoscale=scen.AutoscaleConfig())):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            scen.run_scenario(spec, cfg, params, planner, device="cpu",
-                              mesh=2, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scen.replay_trace(golden("disagg_trace"), cfg, params, planner,
-                          mesh=2, device="cpu")
-    assert planner.plans == 0
-    with pytest.raises(SystemExit):
-        launcher.main(["--mesh", "2", "--device", "cpu"])
+    kw = dict(disagg=scen.DisaggConfig(), autoscale=scen.AutoscaleConfig())
+    with one_torch_thread():
+        ran = rung_runs(monkeypatch)
+        want = roundtrip(scen.run_scenario(spec, cfg, params, planners()[0],
+                                           device="cpu", **kw))
+        assert backend_rungs(ran) == {"backend.scan"}
+        engine.lane_cache_reset()
+        ran.clear()
+        got = roundtrip(scen.run_scenario(spec, cfg, params, planners()[0],
+                                          device="cpu", mesh=2, **kw))
+        assert backend_rungs(ran) == {"backend.mesh"}
+        assert got == want
+    assert engine.lane_mesh() is None
+    engine.lane_cache_import(full_width_plan[1])
+    full = OffloadPlanner(ARCHS["granite-8b"], device="cpu")
+    fixture = golden("serve_trace")
+    got = roundtrip(scen.replay_trace(fixture, cfg, params, full, mesh=2,
+                                      device="cpu"))
+    assert engine.lane_mesh() is None, "mesh scope must not leak"
+    assert set(got) == set(fixture)
+    for key in fixture:
+        assert got[key] == fixture[key], f"mesh replay drift at {key}"
+    out = _launch(["--requests", "4", "--mesh", "2", "--device", "cpu"],
+                  capsys)
+    assert "lane mesh: 2 shard(s) of cpu" in out
+    assert "served 4 requests (monolithic engine)" in out
+    assert engine.lane_mesh() is None

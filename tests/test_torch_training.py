@@ -33,6 +33,7 @@ it deliberately with ``PYTHONPATH=src python tests/test_torch_training.py``
 (a few minutes and ~25 GB of host memory); ``... --port-distance`` runs
 the port on the CPU against it and prints each tolerance's worst share.
 """
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -46,11 +47,13 @@ import tempfile
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 import repro.core  # noqa: F401  (first: the reference's import order)
 import jax
 import jax.numpy as jnp
 from repro.configs import ARCHS as REF_ARCHS
+from repro.configs import SHAPES as REF_SHAPES
 from repro.configs import smoke_config as ref_smoke
 from repro.core.faults import VirtualClock as RefVirtualClock
 from repro.data.pipeline import SyntheticLM as RefSyntheticLM
@@ -61,13 +64,14 @@ from repro.training import grad_compress as RGC
 from repro.training import optimizer as ROPT
 from repro.training import trainer as RT
 
-from repro_torch.configs import ARCHS, smoke_config
+from repro_torch.configs import ARCHS, SHAPES, smoke_config
 from repro_torch.core.faults import VirtualClock
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.launch import train as train_launcher
 from repro_torch.models import model as M
 from repro_torch.models.convert import (draw_numpy_params, params_from_numpy,
                                         params_to_numpy)
+from repro_torch.distribution import sharding as SH
 from repro_torch.training import checkpoint as CKPT
 from repro_torch.training import fault as F
 from repro_torch.training import grad_compress as GC
@@ -432,8 +436,31 @@ def test_prefetcher_delivers_batches_in_order():
                                   src.batch(step, 4, 16)["tokens"])
     finally:
         pf.close()
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        Prefetcher(src, 4, 16, sharding={"tokens": None}, device="cpu")
+    # sharding=: each batch placed with distribute_tensor on a 1-rank mesh
+    with _one_rank_mesh() as mesh:
+        rep = (mesh, [Replicate()])
+        pf = Prefetcher(src, 4, 16, sharding={"tokens": rep, "labels": rep},
+                        start_step=2)
+        try:
+            b = next(pf)
+            assert isinstance(b["tokens"], DTensor)
+            assert np.array_equal(b["tokens"].full_tensor().numpy(),
+                                  src.batch(2, 4, 16)["tokens"])
+        finally:
+            pf.close()
+
+
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A 1-rank gloo process group and its ("data",) ``DeviceMesh``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield DeviceMesh("cpu", [0], mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------
@@ -472,8 +499,15 @@ def test_checkpoint_roundtrip_and_atomicity(tmp_path):
     assert torch.equal(restored["a"], tree["a"])
     assert restored["b"]["c"].dtype == torch.int32
     assert not list(tmp_path.glob("*.tmp"))
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        CKPT.restore(tmp_path, tree, shardings={"a": None, "b": None})
+    # elastic restore onto a sharded layout (a 1-rank mesh), as the JAX
+    # package's test_elastic_restore_across_mesh
+    with _one_rank_mesh() as mesh:
+        sh = {"a": (mesh, [Shard(0)]), "b": {"c": (mesh, [Replicate()])}}
+        sharded, _ = CKPT.restore(tmp_path, tree, step=7, shardings=sh)
+        assert isinstance(sharded["a"], DTensor)
+        assert sharded["a"].placements == (Shard(0),)
+        assert torch.equal(sharded["a"].full_tensor(), tree["a"])
+        assert torch.equal(sharded["b"]["c"].full_tensor(), tree["b"]["c"])
     with pytest.raises(ValueError, match="ckpt"):
         CKPT.restore(tmp_path, dict(tree, a=torch.zeros(4, 3)), step=7)
 
@@ -595,18 +629,38 @@ def test_loss_variants_match_reference_on_granite(remat, chunks):
 
 @pytest.mark.parametrize("policy", ["dots", "moe-save", "tp-save"])
 def test_distribution_only_policies_and_specs_raise(policy):
-    _rcfg, cfg, _rp, nparams = _smoke_params("granite-8b")
-    pp = _port(nparams)
+    """The dry-run's selective remat policies: the loss and every grad
+    are bit-equal to ``"full"`` on the port and hold to the JAX package
+    under the same policy; ``param_logical`` / ``param_specs`` /
+    ``input_specs`` have the reference's trees (``tests/
+    test_torch_distribution.py`` checks them at every arch)."""
+    arch = "granite-moe-3b-a800m" if policy == "moe-save" else "granite-8b"
+    rcfg, cfg, _rp, nparams = _smoke_params(arch)
     batch = {k: torch.from_numpy(v) for k, v in
-             _train_batch(ref_smoke(REF_ARCHS["granite-8b"])).items()}
+             _train_batch(rcfg).items()}
+
+    def loss_and_grads():
+        pp = _port(nparams)
+        leaves = OPT.tree_leaves(pp)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = M.loss_fn(cfg, pp, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves,
+                                                  allow_unused=True)
+
+    full_loss, full_grads = loss_and_grads()
     M.REMAT_POLICY = policy
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        M.loss_fn(cfg, pp, batch)
-    for fn in (M.param_logical, M.param_specs):
-        with pytest.raises(NotImplementedError, match="distribution slice"):
-            fn(cfg)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        M.input_specs(cfg, None)
+    loss, grads = loss_and_grads()
+    assert torch.equal(loss, full_loss)
+    for g, h in zip(grads, full_grads):
+        assert (g is None and h is None) or torch.equal(g, h)
+    RM.REMAT_POLICY = policy
+    _loss_and_grads_agree(arch)
+    assert [p for p, _ in SH.leaves_with_paths(M.param_specs(cfg))] == \
+        [tuple(k.key for k in p) for p, _ in
+         jax.tree_util.tree_flatten_with_path(RM.param_specs(rcfg))[0]]
+    assert set(M.input_specs(cfg, SHAPES["decode_32k"])) == set(
+        RM.input_specs(rcfg, REF_SHAPES["decode_32k"]))
 
 
 def test_serving_forward_is_unchanged_by_remat():
