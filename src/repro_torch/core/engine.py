@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from . import commands as C
-from . import faults
+from . import faults, trace
 from .timing import TimingCycles
 from repro_torch.kernels import lane_scan
 
@@ -117,7 +117,9 @@ _LANE_CACHE: "OrderedDict[tuple, tuple[int, np.ndarray | None, int]]" = \
 _LANE_CACHE_LOCK = threading.Lock()
 _LANE_CACHE_MAX = 4096
 _LANE_ISSUE_BYTES = 1 << 16
-_LANE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+# The LRU's counters live in the tracer (``core/trace.py``).
+_LANE_COUNTERS = {"hits": "engine.lane_hits", "misses": "engine.lane_misses",
+                  "evictions": "engine.lane_evictions"}
 
 
 def _lane_tag(total: int, issue: np.ndarray | None) -> int:
@@ -141,16 +143,14 @@ def configure_lane_cache(maxsize: int) -> None:
             return
         _LANE_CACHE_MAX = maxsize
         _LANE_CACHE.clear()
-        for k in _LANE_STATS:
-            _LANE_STATS[k] = 0
+        trace.reset(*_LANE_COUNTERS.values())
 
 
 def lane_cache_reset() -> None:
     """Drop every cached lane AND zero the counters (capacity survives)."""
     with _LANE_CACHE_LOCK:
         _LANE_CACHE.clear()
-        for k in _LANE_STATS:
-            _LANE_STATS[k] = 0
+        trace.reset(*_LANE_COUNTERS.values())
 
 
 def lane_cache_clear() -> None:
@@ -162,9 +162,10 @@ def lane_cache_clear() -> None:
 def lane_cache_info() -> dict:
     """Lane-LRU counters; ``misses`` counts lanes that needed the engine."""
     with _LANE_CACHE_LOCK:
+        counted = trace.totals()
         return dict(size=len(_LANE_CACHE), maxsize=_LANE_CACHE_MAX,
-                    hits=_LANE_STATS["hits"], misses=_LANE_STATS["misses"],
-                    evictions=_LANE_STATS["evictions"])
+                    **{k: counted.counter(name)
+                       for k, name in _LANE_COUNTERS.items()})
 
 
 def lane_cache_touch(pairs: Iterable[tuple]) -> int:
@@ -220,19 +221,19 @@ def _lane_cache_get(key, need_issue: bool):
     with _LANE_CACHE_LOCK:
         ent = _LANE_CACHE.get(key)
         if ent is None or (need_issue and ent[1] is None):
-            _LANE_STATS["misses"] += 1
+            trace.count("engine.lane_misses")
             return None
         total, issue, tag = ent
         if tag != _lane_tag(total, issue):
             # Poisoned entry: evict and fall back cold — never serve a
             # stale lane.  Counted as a miss (the caller re-resolves).
             del _LANE_CACHE[key]
-            _LANE_STATS["misses"] += 1
+            trace.count("engine.lane_misses")
             faults.record_event("lane_cache", "detect",
                                 "poisoned entry evicted (tag mismatch)")
             return None
         _LANE_CACHE.move_to_end(key)
-        _LANE_STATS["hits"] += 1
+        trace.count("engine.lane_hits")
         return (total, issue)
 
 
@@ -249,7 +250,7 @@ def _lane_cache_put(key, total: int, issue: np.ndarray | None) -> None:
         _LANE_CACHE.move_to_end(key)
         while len(_LANE_CACHE) > _LANE_CACHE_MAX:
             _LANE_CACHE.popitem(last=False)
-            _LANE_STATS["evictions"] += 1
+            trace.count("engine.lane_evictions")
 
 
 def lane_cache_poison(n: int = 1, seed: int = 0) -> int:
@@ -625,55 +626,61 @@ def resolve_lanes(
     breaker; lanes a failing rung already stored are not run again.  The
     terminal rung's failure propagates.
     """
-    dev = resolve_device(device)
-    scope = active_backend_scope() if scope is None else scope
-    lanes = list(lanes)
-    uniq: list[list] = []              # [cyc, stream, ukey]
-    lane_of: list[int] = []            # flat lane -> unique lane
-    uniq_index: dict = {}
-    for i, (cyc, s) in enumerate(lanes):
-        k = keys[i] if keys is not None else None
-        if k is not None:
-            ukey = (cyc, 0, k)
-        else:
+    with trace.span("engine.resolve_lanes"):
+        return _resolve_lanes(
+            list(lanes), keys, need_issue, resolve_device(device),
+            active_backend_scope() if scope is None else scope)
+
+
+def _resolve_lanes(lanes: list, keys, need_issue: bool, dev: torch.device,
+                   scope: BackendScope) -> list:
+    with trace.span("engine.dedupe"):
+        uniq: list[list] = []              # [cyc, stream, ukey]
+        lane_of: list[int] = []            # flat lane -> unique lane
+        uniq_index: dict = {}
+        for i, (cyc, s) in enumerate(lanes):
+            k = keys[i] if keys is not None else None
+            if k is not None:
+                ukey = (cyc, 0, k)
+            else:
+                s = np.ascontiguousarray(s, dtype=np.int32)
+                ukey = (cyc, 1, s.shape[0], _digest(s))
+            u = uniq_index.get(ukey)
+            if u is None:
+                u = len(uniq)
+                uniq_index[ukey] = u
+                uniq.append([cyc, s, ukey])
+            lane_of.append(u)
+
+        issues: list[np.ndarray | None] = [None] * len(uniq)
+        totals = np.zeros(len(uniq), dtype=np.int32)
+        misses: list[int] = []
+        for u, (cyc, s, ukey) in enumerate(uniq):
+            ent = _lane_cache_get(ukey, need_issue)
+            if ent is not None:
+                totals[u] = ent[0]
+                issues[u] = ent[1] if need_issue else None
+            else:
+                misses.append(u)
+
+        # Second-level dedupe of the misses by byte identity; ``todo``
+        # holds one representative per distinct (config, bytes),
+        # ``alias`` the cache-key lanes that share its result.
+        todo: list[int] = []
+        alias: dict[int, list[int]] = {}
+        hash_index: dict = {}
+        for u in misses:
+            cyc, s, _ukey = uniq[u]
             s = np.ascontiguousarray(s, dtype=np.int32)
-            ukey = (cyc, 1, s.shape[0], _digest(s))
-        u = uniq_index.get(ukey)
-        if u is None:
-            u = len(uniq)
-            uniq_index[ukey] = u
-            uniq.append([cyc, s, ukey])
-        lane_of.append(u)
-
-    issues: list[np.ndarray | None] = [None] * len(uniq)
-    totals = np.zeros(len(uniq), dtype=np.int32)
-    misses: list[int] = []
-    for u, (cyc, s, ukey) in enumerate(uniq):
-        ent = _lane_cache_get(ukey, need_issue)
-        if ent is not None:
-            totals[u] = ent[0]
-            issues[u] = ent[1] if need_issue else None
-        else:
-            misses.append(u)
-
-    # Second-level dedupe of the misses by byte identity; ``todo`` holds
-    # one representative per distinct (config, bytes), ``alias`` the
-    # cache-key lanes that share its result.
-    todo: list[int] = []
-    alias: dict[int, list[int]] = {}
-    hash_index: dict = {}
-    for u in misses:
-        cyc, s, _ukey = uniq[u]
-        s = np.ascontiguousarray(s, dtype=np.int32)
-        uniq[u][1] = s
-        hkey = (cyc, s.shape[0], _digest(s))
-        rep = hash_index.get(hkey)
-        if rep is None:
-            hash_index[hkey] = u
-            todo.append(u)
-            alias[u] = []
-        else:
-            alias[rep].append(u)
+            uniq[u][1] = s
+            hkey = (cyc, s.shape[0], _digest(s))
+            rep = hash_index.get(hkey)
+            if rep is None:
+                hash_index[hkey] = u
+                todo.append(u)
+                alias[u] = []
+            else:
+                alias[rep].append(u)
 
     # Lanes are ordered by length bucket within each bank count, and
     # every rung stores its results in that order, so results enter the
@@ -694,48 +701,74 @@ def resolve_lanes(
         """Pack ``idxs`` (padded to ``width`` rows of length-0 lanes with
         the timing row of lane ``like``, or of their first lane) and
         launch the resolver on ``dev`` (on ``stream``, if given); returns
-        the device results."""
-        lanes = [(uniq[u][0], uniq[u][1]) for u in idxs] or \
-            [(uniq[like][0], np.zeros((1, 4), np.int32))]
-        cycs, streams, lengths = pack_lanes(lanes)
-        pad = (width or len(lanes)) - len(lanes)
-        if pad:
-            cycs = torch.cat([cycs, cycs[:1].expand(pad, -1)])
-            streams = torch.cat([streams, streams.new_zeros(
-                (pad, *streams.shape[1:]))])
-            lengths = torch.cat([lengths, lengths.new_zeros(pad)])
+        the device results and, on a card, the CUDA events around the
+        copies (``_read`` adds their interval to ``engine.h2d_device_ns``
+        once the results are back)."""
+        with trace.span("engine.pack"):
+            lanes = [(uniq[u][0], uniq[u][1]) for u in idxs] or \
+                [(uniq[like][0], np.zeros((1, 4), np.int32))]
+            cycs, streams, lengths = pack_lanes(lanes)
+            pad = (width or len(lanes)) - len(lanes)
+            if pad:
+                cycs = torch.cat([cycs, cycs[:1].expand(pad, -1)])
+                streams = torch.cat([streams, streams.new_zeros(
+                    (pad, *streams.shape[1:]))])
+                lengths = torch.cat([lengths, lengths.new_zeros(pad)])
+        trace.count("engine.stream_bytes", streams.element_size() * 4 * sum(
+            uniq[u][1].shape[0] for u in idxs))
+        trace.count("engine.slab_bytes",
+                    streams.element_size() * streams.numel())
         ctx = torch.cuda.stream(stream) if stream is not None \
             else contextlib.nullcontext()
         with ctx:
-            return lane_scan.lane_scan(
-                cycs.to(dev, non_blocking=True),
-                streams.to(dev, non_blocking=True),
-                lengths.to(dev, non_blocking=True), nb,
-                need_issue=need_issue)
+            copied = None
+            if dev.type == "cuda":
+                copied = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                copied[0].record()
+            with trace.span("engine.h2d"):
+                on_dev = [t.to(dev, non_blocking=True)
+                          for t in (cycs, streams, lengths)]
+            if copied is not None:
+                copied[1].record()
+            trace.count("engine.h2d_bytes", sum(
+                t.element_size() * t.numel()
+                for t in (cycs, streams, lengths)))
+            with trace.span("lane_scan.launch"):
+                return (lane_scan.lane_scan(*on_dev, nb,
+                                            need_issue=need_issue),
+                        copied)
 
-    def _read(res, stream=None):
-        if stream is not None:
-            stream.synchronize()
-        iss, tot = res
-        return (iss.cpu().numpy() if need_issue else None,
-                tot.cpu().numpy())
+    def _read(launched, stream=None):
+        with trace.span("engine.readback"):
+            (iss, tot), copied = launched
+            if stream is not None:
+                stream.synchronize()
+            out = (iss.cpu().numpy() if need_issue else None,
+                   tot.cpu().numpy())
+        if copied is not None:
+            # the copies precede the kernel whose results are back
+            trace.count("engine.h2d_device_ns",
+                        round(copied[0].elapsed_time(copied[1]) * 1e6))
+        return out
 
     def _store(idxs: list[int], iss, tot) -> None:
         """Write one launch's rows (true lengths) into the results and
         the LRU; rows past ``idxs`` (padding) are never read."""
-        for row, u in enumerate(idxs):
-            if need_issue:
-                # copy: a view would pin the whole padded slab;
-                # read-only: results are shared between deduped
-                # lanes and the LRU, so mutation must be an error
-                arr = iss[row, : uniq[u][1].shape[0]].copy()
-                arr.setflags(write=False)
-                issues[u] = arr
-            for v in (u, *alias[u]):
-                totals[v] = tot[row]
-                issues[v] = issues[u]
-                _lane_cache_put(uniq[v][2], int(tot[row]), issues[u])
-            done.add(u)
+        with trace.span("engine.store"):
+            for row, u in enumerate(idxs):
+                if need_issue:
+                    # copy: a view would pin the whole padded slab;
+                    # read-only: results are shared between deduped
+                    # lanes and the LRU, so mutation must be an error
+                    arr = iss[row, : uniq[u][1].shape[0]].copy()
+                    arr.setflags(write=False)
+                    issues[u] = arr
+                for v in (u, *alias[u]):
+                    totals[v] = tot[row]
+                    issues[v] = issues[u]
+                    _lane_cache_put(uniq[v][2], int(tot[row]), issues[u])
+                done.add(u)
 
     def _run_scan() -> None:
         # One launch per bank count on the resolve's device.

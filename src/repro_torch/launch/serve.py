@@ -56,7 +56,7 @@ import torch
 
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.core import engine as lane_engine
-from repro_torch.core import faults, warmstart
+from repro_torch.core import faults, trace, warmstart
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.pimsim import PimSimulator
 from repro_torch.models import model as M
@@ -443,14 +443,25 @@ def _serve(args, full_cfg, cfg, params, device, t_start) -> None:
 
 
 def _warm_epilogue(args) -> None:
-    """Parseable lane-cache counters + snapshot save (no-op without a
-    cache dir)."""
+    """Parseable lane-cache counters and program spans, then the
+    snapshot save (no-op without a cache dir)."""
     info = lane_engine.lane_cache_info()
     print(f"serve/lane_cache,hits={info['hits']},misses={info['misses']},"
           f"size={info['size']}", flush=True)
+    print(spans_row(trace.totals()), flush=True)
     saved = warmstart.save_warm_start(args.cache_dir)
     if saved >= 0:
         print(f"warm start: saved {saved} lanes", flush=True)
+
+
+def spans_row(totals: "trace.Totals") -> str:
+    """``serve/spans,<span>=<count>:<total ms>,...,lane_hits=..,
+    lane_misses=..``: every program span of the process, by name."""
+    cells = [f"{name}={count}:{total / 1e6:.3f}"
+             for name, (count, total, _child) in sorted(totals.spans.items())]
+    cells += [f"lane_hits={totals.counter('engine.lane_hits')}",
+              f"lane_misses={totals.counter('engine.lane_misses')}"]
+    return ",".join(["serve/spans"] + cells)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,7 @@ from typing import Iterable, Sequence
 import numpy as np
 
 from repro_torch.core import commands as C
-from repro_torch.core import controller, device, engine
+from repro_torch.core import controller, device, engine, trace
 from repro_torch.core.energy import EnergyParams, gemv_energy_summary
 from repro_torch.core.timing import DEFAULT_SYSTEM, SystemSpec, TimingCycles
 from . import codegen
@@ -229,29 +229,32 @@ class PimExecutor:
     # -- fleet API -------------------------------------------------------
     def plan_many(self, reqs: Iterable[GemvRequest]) -> list[PlannedGemv]:
         """Build every layout/program/stream eagerly (no timing yet)."""
-        out = []
-        for r in reqs:
-            r = r.resolved(self.default_spec)
-            ctx = spec_context(r.spec)
-            if r.kind == "baseline":
-                total_bytes = r.H * r.W * r.dtype.w_bits // 8
-                per_ch = -(-total_bytes // ctx.spec.num_channels)
+        with trace.span("executor.plan_many"):
+            return [self._plan_one(r.resolved(self.default_spec))
+                    for r in reqs]
+
+    def _plan_one(self, r: GemvRequest) -> PlannedGemv:
+        ctx = spec_context(r.spec)
+        if r.kind == "baseline":
+            total_bytes = r.H * r.W * r.dtype.w_bits // 8
+            per_ch = -(-total_bytes // ctx.spec.num_channels)
+            with trace.span("executor.streams"):
                 stream = controller.sequential_read_stream(per_ch, ctx.spec)
-                # the stream is fully determined by (memory system, H, W,
-                # dtype) == r.key, identical across channels -> one lane
-                out.append(PlannedGemv(
-                    req=r, ctx=ctx,
-                    streams=[stream] * ctx.spec.num_channels,
-                    stream_keys=[r.key] * ctx.spec.num_channels,
-                    weight_bytes=total_bytes))
-            else:
-                layout, program = self.plan(r.H, r.W, r.dtype,
-                                            reshape=r.reshape, spec=r.spec)
-                gs = self.build_streams(layout, program, fence=r.fence,
-                                        flush=r.flush)
-                out.append(PlannedGemv(req=r, ctx=ctx, streams=gs.streams,
-                                       stream_keys=gs.stream_keys, gs=gs))
-        return out
+            # the stream is fully determined by (memory system, H, W,
+            # dtype) == r.key, identical across channels -> one lane
+            return PlannedGemv(
+                req=r, ctx=ctx,
+                streams=[stream] * ctx.spec.num_channels,
+                stream_keys=[r.key] * ctx.spec.num_channels,
+                weight_bytes=total_bytes)
+        with trace.span("executor.layout"):
+            layout, program = self.plan(r.H, r.W, r.dtype,
+                                        reshape=r.reshape, spec=r.spec)
+        with trace.span("executor.streams"):
+            gs = self.build_streams(layout, program, fence=r.fence,
+                                    flush=r.flush)
+        return PlannedGemv(req=r, ctx=ctx, streams=gs.streams,
+                           stream_keys=gs.stream_keys, gs=gs)
 
     def touch_many(self, reqs: Sequence[GemvRequest]) -> int:
         """Pin the requests' resolved lanes at the MRU end of the lane
@@ -293,8 +296,9 @@ class PimExecutor:
             [(p.ctx.cyc, p.streams) for p in planned],
             keys=[p.stream_keys for p in planned],
             need_issue=False, device=self.device)
-        by_key = {p.req.key: self._finish(p, fr.totals)
-                  for p, fr in zip(planned, fleet)}
+        with trace.span("executor.assemble"):
+            by_key = {p.req.key: self._finish(p, fr.totals)
+                      for p, fr in zip(planned, fleet)}
         return [by_key[r.key] for r in reqs]
 
     def run_functional_many(self, items: Sequence[FunctionalGemv]

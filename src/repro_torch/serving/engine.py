@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import trace
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import model as M
 from .offload import OffloadPlanner
@@ -122,12 +123,17 @@ class DecodeLoop:
 
     def _decode(self, tokens: np.ndarray) -> np.ndarray:
         """One batched decode step over every slot at its own position;
-        the next token of every slot (one argmax, one host transfer)."""
-        logits, self.cache = M.decode_step(
-            self.cfg, self.params, self.cache,
-            torch.as_tensor(tokens, device=self.device),
-            torch.as_tensor(self.pos, device=self.device))
-        return torch.argmax(logits, dim=-1).cpu().numpy().reshape(-1)
+        the next token of every slot (one argmax, one host transfer).
+        The forward's span is ``decode_step`` with no span inside it, so a
+        device trace labels the forward's launches by that name alone."""
+        with trace.span("decode_step"):
+            logits, self.cache = M.decode_step(
+                self.cfg, self.params, self.cache,
+                torch.as_tensor(tokens, device=self.device),
+                torch.as_tensor(self.pos, device=self.device))
+            nxt = torch.argmax(logits, dim=-1)
+        with trace.span("serving.decode_sync"):
+            return nxt.cpu().numpy().reshape(-1)
 
     def _advance(self, i: int, tok: int, tick: int) -> None:
         req = self.active[i]
@@ -258,20 +264,22 @@ class ServingEngine(DecodeLoop):
     def _prefill(self, slot: int, req: Request):
         """Single-slot prefill, then the whole one-slot cache (zeros past
         the prompt) copied into the batched cache at ``slot``."""
-        logits, one = prefill_one(self.cfg, self.params, req, self.max_seq,
-                                  self.device)
-        merge_slot(self.cache, one, slot)
-        self.pos[slot] = len(req.prompt)
-        req.out.append(int(torch.argmax(logits[0])))
+        with trace.span("serving.prefill"):
+            logits, one = prefill_one(self.cfg, self.params, req,
+                                      self.max_seq, self.device)
+            merge_slot(self.cache, one, slot)
+            self.pos[slot] = len(req.prompt)
+            req.out.append(int(torch.argmax(logits[0])))
         self.stats["prefills"] += 1
 
     # ------------------------------------------------------------------
     def step(self):
         """One batched decode step over all active slots."""
-        tick = self.ticks
-        self.ticks += 1          # idle ticks advance too (tick-aligned)
-        self._admit(tick)
-        return self._decode_active(tick) > 0
+        with trace.frame("serving.step"):
+            tick = self.ticks
+            self.ticks += 1      # idle ticks advance too (tick-aligned)
+            self._admit(tick)
+            return self._decode_active(tick) > 0
 
     def run(self, max_steps: int = 1000) -> dict:
         while (any(self.active) or self.waiting) and max_steps > 0:

@@ -21,6 +21,7 @@ import dataclasses
 from typing import Sequence
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import trace
 from repro_torch.core.pimsim import PimSimulator
 from repro_torch.core.timing import SystemSpec
 from repro_torch.pimkernel.executor import GemvRequest
@@ -157,30 +158,31 @@ class OffloadPlanner:
         and each variant's plan is cached under its (spec, fence) key.
         Returns one decision list per spec, in input order.
         """
-        specs = [sp or self.sim.spec for sp in specs]
-        sites = decode_gemv_sites(self.cfg)
-        reshapes = [site.h < 2048 for site in sites]   # §3.3 regime
-        todo = [sp for sp in dict.fromkeys(specs)
-                if (sp, fence) not in self._plans]
-        reqs = []
-        for sp in todo:
-            for site, reshape in zip(sites, reshapes):
-                reqs.append(GemvRequest.pim(site.h, site.w, self.dtype,
-                                            fence=fence, reshape=reshape,
-                                            spec=sp))
-                reqs.append(GemvRequest.baseline(site.h, site.w,
-                                                 self.dtype, spec=sp))
-        res = iter(self.sim.run_many(reqs))
-        for sp in todo:
-            out = []
-            for site, reshape in zip(sites, reshapes):
-                pim, base = next(res), next(res)
-                crossover = max(1, int(base.ns / pim.ns))
-                out.append(OffloadDecision(site=site, pim_ns=pim.ns,
-                                           host_ns=base.ns, reshape=reshape,
-                                           offload_below_batch=crossover))
-            self._plans[(sp, fence)] = out
-        return [self._plans[(sp, fence)] for sp in specs]
+        with trace.frame("offload.plan_grid"):
+            specs = [sp or self.sim.spec for sp in specs]
+            sites = decode_gemv_sites(self.cfg)
+            reshapes = [site.h < 2048 for site in sites]   # §3.3 regime
+            todo = [sp for sp in dict.fromkeys(specs)
+                    if (sp, fence) not in self._plans]
+            reqs = []
+            for sp in todo:
+                for site, reshape in zip(sites, reshapes):
+                    reqs.append(GemvRequest.pim(site.h, site.w, self.dtype,
+                                                fence=fence, reshape=reshape,
+                                                spec=sp))
+                    reqs.append(GemvRequest.baseline(site.h, site.w,
+                                                     self.dtype, spec=sp))
+            res = iter(self.sim.run_many(reqs))
+            for sp in todo:
+                out = []
+                for site, reshape in zip(sites, reshapes):
+                    pim, base = next(res), next(res)
+                    crossover = max(1, int(base.ns / pim.ns))
+                    out.append(OffloadDecision(
+                        site=site, pim_ns=pim.ns, host_ns=base.ns,
+                        reshape=reshape, offload_below_batch=crossover))
+                self._plans[(sp, fence)] = out
+            return [self._plans[(sp, fence)] for sp in specs]
 
     def plan(self, fence: bool = True,
              spec: SystemSpec | None = None) -> list[OffloadDecision]:
@@ -292,16 +294,17 @@ class OffloadPlanner:
                        spec: SystemSpec | None = None) -> dict:
         """End-to-end decode-step speedup from offloading (Amdahl over
         all GEMV sites; cached weights on host amortize over batch)."""
-        decisions = self.plan(fence=fence, spec=spec)
-        off = offload_set(decisions, batch)
-        host_total, mixed_total = step_cost(decisions, batch, off)
-        return dict(batch=batch,
-                    host_ns=host_total,
-                    mixed_ns=mixed_total,
-                    speedup=host_total / max(mixed_total, 1e-9),
-                    offloaded=[d.site.name for d in decisions
-                               if d.site.name in off],
-                    n_sites=len(decisions))
+        with trace.span("offload.decode_speedup"):
+            decisions = self.plan(fence=fence, spec=spec)
+            off = offload_set(decisions, batch)
+            host_total, mixed_total = step_cost(decisions, batch, off)
+            return dict(batch=batch,
+                        host_ns=host_total,
+                        mixed_ns=mixed_total,
+                        speedup=host_total / max(mixed_total, 1e-9),
+                        offloaded=[d.site.name for d in decisions
+                                   if d.site.name in off],
+                        n_sites=len(decisions))
 
     def occupancy_weighted_speedup(self, occupancy: dict[int, int],
                                    fence: bool = True,

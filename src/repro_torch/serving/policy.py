@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core import engine, faults
+from repro_torch.core import engine, faults, trace
 from .offload import offload_set, step_cost
 
 
@@ -296,27 +296,28 @@ class OffloadController:
 
     # -- the per-step control loop -------------------------------------
     def observe(self, batch: int) -> StepRecord:
-        offload = self.policy.offload_for(self, self._step, batch)
-        if self._current is not None and offload != self._current:
-            self.switches += 1
-            self.switch_log.append(dict(
-                step=self._step, batch=batch,
-                on=sorted(offload - self._current),
-                off=sorted(self._current - offload)))
-        self._current = offload
-        host, mixed = step_cost(self.decisions, batch, offload)
-        _, oracle = step_cost(self.decisions, batch,
-                              offload_set(self.decisions, batch))
-        self._host_ns += host
-        self._mixed_ns += mixed
-        self._oracle_ns += oracle
-        rec = StepRecord(step=self._step, batch=batch,
-                         offloaded=len(offload),
-                         speedup=host / max(mixed, 1e-9))
-        self.trace.append(rec)
-        self.set_log.append(offload)
-        self._step += 1
-        return rec
+        with trace.span("policy.observe"):
+            offload = self.policy.offload_for(self, self._step, batch)
+            if self._current is not None and offload != self._current:
+                self.switches += 1
+                self.switch_log.append(dict(
+                    step=self._step, batch=batch,
+                    on=sorted(offload - self._current),
+                    off=sorted(self._current - offload)))
+            self._current = offload
+            host, mixed = step_cost(self.decisions, batch, offload)
+            _, oracle = step_cost(self.decisions, batch,
+                                  offload_set(self.decisions, batch))
+            self._host_ns += host
+            self._mixed_ns += mixed
+            self._oracle_ns += oracle
+            rec = StepRecord(step=self._step, batch=batch,
+                             offloaded=len(offload),
+                             speedup=host / max(mixed, 1e-9))
+            self.trace.append(rec)
+            self.set_log.append(offload)
+            self._step += 1
+            return rec
 
     def report(self) -> dict:
         steps = self._step
