@@ -1140,7 +1140,7 @@ def serving_without_a_model(dev, card: str) -> dict:
 
     def counting_scan(cycs, streams, lengths, nb, **kw):
         iss, tot = real_scan(cycs, streams, lengths, nb, **kw)
-        stats["lanes"] += int(streams.shape[0])
+        stats["lanes"] += int(lengths.shape[0])
         stats["commands"] += int(lengths.sum())
         if keep_short[0]:
             tot_host = tot.cpu().numpy()
@@ -1269,12 +1269,14 @@ def serving_without_a_model(dev, card: str) -> dict:
         iss, tot = real_scan(cycs.to(dev), streams.to(dev),
                              lengths.to(dev), nb)
         iss, tot = iss.cpu().numpy(), tot.cpu().numpy()
+        at = 0
         for row, (cyc, s, total) in enumerate(lanes):
             iss_ref, tot_ref = RefEngine(cyc, validate=False).run(s)
-            check(np.array_equal(iss[row, : s.shape[0]].astype(np.int64),
-                                 iss_ref)
+            n = s.shape[0]
+            check(np.array_equal(iss[at:at + n].astype(np.int64), iss_ref)
                   and int(tot[row]) == tot_ref == total,
-                  f"RefEngine != kernel on a {s.shape[0]}-command lane")
+                  f"RefEngine != kernel on a {n}-command lane")
+            at += n
     torch.cuda.synchronize()
     walls["oracle"] = time.perf_counter() - t0
     oracle = dict(lanes=len(short),
@@ -2470,18 +2472,20 @@ def main() -> int:
         streams[..., 2:] = rng.integers(0, 128, size=(f, n, 2))
         lengths = rng.integers(0, n + 1, size=f)
         lengths[0] = n
+        lengths[rng.random(f) < 0.1] = 0
         as_i32 = lambda x: torch.from_numpy(  # noqa: E731
             np.ascontiguousarray(x, dtype=np.int32))
-        return as_i32(cycs), as_i32(streams), as_i32(lengths)
+        live = np.arange(n)[None, :] < lengths[:, None]   # ragged slab
+        return as_i32(cycs), as_i32(streams[live]), as_i32(lengths)
 
     for nb in lane_scan.SUPPORTED_BANKS:
         compare(*fuzz(nb, 8, 64), nb, f"fuzzed lanes, {nb} banks")
     for nb in (8, 12, 16):
         compare(*fuzz(nb, 96, 400), nb, f"long fuzzed lanes, {nb} banks")
         spec = SystemSpec(timings=LpddrTimings(num_bankgroups=nb // 4))
-        probe = lane_scan.probe_stream(nb)[None].contiguous()
+        probe = lane_scan.probe_stream(nb)
         compare(engine.pack_cycles([spec.derive_cycles()]), probe,
-                torch.tensor([probe.shape[1]], dtype=torch.int32), nb,
+                torch.tensor([probe.shape[0]], dtype=torch.int32), nb,
                 f"probe lane, {nb} banks")
 
     # The PIM streams of one Fig-4 point (512 x 4096 W8A8, ~8k commands
@@ -2498,7 +2502,7 @@ def main() -> int:
     short_kernel_ms = timed_ms({"kernel": lambda: lane_scan.lane_scan(
         *cu, 16, need_issue=False)}, 9)["kernel"]["ms"]
     print(f"[2] kernel == plain on the card (max abs err {worst}); "
-          f"Fig-4 PIM lanes ({cu[1].shape[0]} x {steps} steps): plain "
+          f"Fig-4 PIM lanes ({cu[2].shape[0]} x {steps} steps): plain "
           f"{plain_ms:.1f} ms, kernel {short_kernel_ms:.3f} ms")
 
     # ---- 3. the reference's numbers at full width ------------------------
@@ -2679,11 +2683,10 @@ def main() -> int:
 
     # ---- 5. the kernel at the main path's launches ----------------------
     def bound(args, need_issue: bool) -> tuple[float, str]:
-        cycs, streams, lengths = args[0], args[1], args[2]
-        f, n = streams.shape[0], streams.shape[1]
-        nbytes = (16 * int(lengths.sum()) + 4 * cycs.numel()
-                  + 4 * lengths.numel() + 4 * f
-                  + (4 * f * n if need_issue else 0))
+        cycs, lengths = args[0], args[2]
+        commands = int(lengths.sum())
+        nbytes = (16 * commands + 4 * cycs.numel() + 8 * lengths.numel()
+                  + (4 * commands if need_issue else 0))
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         chain_ms = (int(lengths.max()) * CHAIN_CYCLES_PER_STEP
                     / (sm_mhz * 1e6) * 1e3)
@@ -2706,7 +2709,7 @@ def main() -> int:
         fleets[p] = dict(
             launches=len(runs), ms=ms, spread=spread, launches_timed=LANE_REPS,
             bound_ms=bound_ms, bound_by=by,
-            lanes=sum(int(a[1].shape[0]) for a, _ in runs),
+            lanes=sum(int(a[2].shape[0]) for a, _ in runs),
             commands=sum(int(a[2].sum()) for a, _ in runs),
             longest_lane=max(int(a[2].max()) for a, _ in runs))
         print(f"[5] {p}: {json.dumps(fleets[p])}")

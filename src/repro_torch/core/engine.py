@@ -5,10 +5,9 @@ A *lane* is one channel's command stream under one timing configuration.
 then a byte hash), serves repeats from the resolved-lane LRU, groups the
 misses by bank count and hands each group to the lane resolver
 (``kernels/lane_scan.py``) as one launch: the timing rows packed into one
-int32 ``(F, 28)`` tensor (:func:`pack_cycles`), the streams NOP-padded to
-the group's longest lane, and the true lengths beside them.  A NOP
-advances nothing and issue arrays are cut back to true lengths, so the
-padding never changes a result.
+int32 ``(F, 28)`` tensor (:func:`pack_cycles`), the streams laid end to
+end in one ragged slab of their true commands alone, and the lengths
+beside them (:func:`pack_lanes`).
 
 Every entry point takes a ``device``: by default the card, and a caller
 without one must ask for ``device="cpu"`` (the plain torch resolver).
@@ -73,15 +72,18 @@ def pack_cycles(cycs: Sequence[TimingCycles]) -> torch.Tensor:
                                                          len(fields))
 
 
+# The stream of a zero-length lane (a launch's padding rows).
+_NO_COMMANDS = np.zeros((0, 4), np.int32)
+
+
 def pack_lanes(lanes: Sequence[tuple[TimingCycles, np.ndarray]]
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One resolver launch's inputs for same-bank-count lanes (CPU):
-    ``(cycs (F, 28), streams (F, N, 4) NOP-padded to the longest lane,
-    lengths (F,))``, all int32."""
-    n = max((s.shape[0] for _c, s in lanes), default=0)
-    buf = np.zeros((len(lanes), n, 4), dtype=np.int32)
-    for row, (_c, s) in enumerate(lanes):
-        buf[row, : s.shape[0]] = s
+    ``(cycs (F, 28), streams (T, 4), lengths (F,))``, all int32.  The
+    slab is ragged: the lanes' true commands end to end, ``T =
+    sum(lengths)``, lane ``f``'s from the sum of the lengths before it."""
+    buf = np.concatenate([s.reshape(-1, 4) for _c, s in lanes]
+                         or [_NO_COMMANDS], dtype=np.int32)
     lengths = torch.tensor([s.shape[0] for _c, s in lanes],
                            dtype=torch.int32)
     return pack_cycles([c for c, _s in lanes]), torch.from_numpy(buf), \
@@ -698,22 +700,18 @@ def _resolve_lanes(lanes: list, keys, need_issue: bool, dev: torch.device,
 
     def _launch(nb: int, idxs: list[int], dev: torch.device,
                 width: int | None = None, stream=None, like: int = 0):
-        """Pack ``idxs`` (padded to ``width`` rows of length-0 lanes with
-        the timing row of lane ``like``, or of their first lane) and
-        launch the resolver on ``dev`` (on ``stream``, if given); returns
-        the device results and, on a card, the CUDA events around the
-        copies (``_read`` adds their interval to ``engine.h2d_device_ns``
-        once the results are back)."""
+        """Pack ``idxs`` (padded to ``width`` rows of zero-length lanes,
+        which carry no command, with the timing row of their first lane,
+        or of lane ``like`` when there is none) and launch the resolver
+        on ``dev`` (on ``stream``, if given); returns the device results
+        and, on a card, the CUDA events around the copies (``_read`` adds
+        their interval to ``engine.h2d_device_ns`` once the results are
+        back)."""
         with trace.span("engine.pack"):
-            lanes = [(uniq[u][0], uniq[u][1]) for u in idxs] or \
-                [(uniq[like][0], np.zeros((1, 4), np.int32))]
+            lanes = [(uniq[u][0], uniq[u][1]) for u in idxs]
+            filler = (uniq[idxs[0] if idxs else like][0], _NO_COMMANDS)
+            lanes += [filler] * ((width or len(lanes)) - len(lanes))
             cycs, streams, lengths = pack_lanes(lanes)
-            pad = (width or len(lanes)) - len(lanes)
-            if pad:
-                cycs = torch.cat([cycs, cycs[:1].expand(pad, -1)])
-                streams = torch.cat([streams, streams.new_zeros(
-                    (pad, *streams.shape[1:]))])
-                lengths = torch.cat([lengths, lengths.new_zeros(pad)])
         trace.count("engine.stream_bytes", streams.element_size() * 4 * sum(
             uniq[u][1].shape[0] for u in idxs))
         trace.count("engine.slab_bytes",
@@ -753,17 +751,21 @@ def _resolve_lanes(lanes: list, keys, need_issue: bool, dev: torch.device,
         return out
 
     def _store(idxs: list[int], iss, tot) -> None:
-        """Write one launch's rows (true lengths) into the results and
-        the LRU; rows past ``idxs`` (padding) are never read."""
+        """Write one launch's lanes into the results and the LRU, each
+        lane's issue cycles from its offset in the flat issue array;
+        rows past ``idxs`` (padding) are never read."""
         with trace.span("engine.store"):
+            start = 0
             for row, u in enumerate(idxs):
                 if need_issue:
-                    # copy: a view would pin the whole padded slab;
+                    # copy: a view would pin the whole launch's array;
                     # read-only: results are shared between deduped
                     # lanes and the LRU, so mutation must be an error
-                    arr = iss[row, : uniq[u][1].shape[0]].copy()
+                    n = uniq[u][1].shape[0]
+                    arr = iss[start:start + n].copy()
                     arr.setflags(write=False)
                     issues[u] = arr
+                    start += n
                 for v in (u, *alias[u]):
                     totals[v] = tot[row]
                     issues[v] = issues[u]

@@ -22,8 +22,15 @@
 //     addends of its clamped index and writes only `cmd_free` and `drain`.
 //   * NEG = -(1 << 30) is the "never happened" sentinel; the ACT_MB quad
 //     is the banks with (bank % 4) == a for every bank count.
-//   * Commands at positions >= lengths[f] are NOPs; their issue entries
-//     are the lane's final NOP issue cycle.
+//   * A NOP advances nothing, so a lane is its true commands alone.
+//
+// Layout.  The slab is ragged: the lanes' commands lie end to end in
+// `streams` (T commands in all), lane f's at rows [start_f, start_f +
+// lengths[f]), where start_f is the sum of the lengths before it; its issue
+// cycles lie at the same offsets of the flat `issue` array.  Each block sums
+// lengths[0..f) itself (a warp-strided sum, in long long), so a resolve stays
+// one launch and the host sends no offsets.  A lane is clamped to the rows
+// the slab holds, so no input reads outside it.
 //
 // Design.  One warp per lane and one lane per block, so the few long
 // lanes of a fleet run on different SMs.
@@ -53,9 +60,9 @@
 //     stored once per chunk, coalesced.
 // Bound.  Each command depends on the previous one through the state
 // (t -> cmd_free / last_cas / bus_free -> t0 and the candidate -> t), a
-// chain of dependent integer operations: N * 32 cycles at the SM clock
-// for the longest lane is the bound chip_smoke.py states.  The bytes are
-// small beside it (16 B per command, +4 B of issue cycles).
+// chain of dependent integer operations: 32 cycles at the SM clock a
+// command of the longest lane is the bound chip_smoke.py states.  The
+// bytes are small beside it (16 B per command, +4 B of issue cycles).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -118,7 +125,7 @@ lane_scan_kernel(const int32_t* __restrict__ cycs,
                  const int4* __restrict__ streams,
                  const int32_t* __restrict__ lengths,
                  int32_t* __restrict__ issue,
-                 int32_t* __restrict__ totals, long long N) {
+                 int32_t* __restrict__ totals, long long T) {
   const int f = blockIdx.x;
   const int k = threadIdx.x;             // this thread's bank and slot
   const bool bank = k < NB;
@@ -140,10 +147,30 @@ lane_scan_kernel(const int32_t* __restrict__ cycs,
   int32_t mac_pipe_end = 0, mode_ready = 0, drain = 0, fence_until = 0;
   int32_t max_act = NEG;
 
+  // This lane's first row: the lengths before it, a warp-strided sum
+  // reduced with redux in three pieces, none of whose sums can pass 32
+  // bits.  A redux's result is uniform to the compiler, so the step loop
+  // that `len` bounds stays uniform; a shuffle's result would make it
+  // divergent (convergence barriers in the loop: 1.7x its instructions
+  // and 1.5x the time a step on an H100).
+  long long part = 0;
+#pragma unroll 4
+  for (int j = k; j < f; j += CHUNK) {
+    const int32_t n = __ldg(lengths + j);
+    part += n > 0 ? n : 0;
+  }
+  const long long start =
+      static_cast<long long>(__reduce_add_sync(
+          FULL, static_cast<unsigned>(part & 0xffff)))
+      + (static_cast<long long>(__reduce_add_sync(
+             FULL, static_cast<unsigned>((part >> 16) & 0xffff))) << 16)
+      + (static_cast<long long>(__reduce_add_sync(
+             FULL, static_cast<unsigned>(part >> 32))) << 32);
+  const long long room = T > start ? T - start : 0;
   long long len = lengths[f];
-  len = len < 0 ? 0 : (len > N ? N : len);
-  const int4* cmds = streams + static_cast<long long>(f) * N;
-  int32_t* out = issue ? issue + static_cast<long long>(f) * N : nullptr;
+  len = len < 0 ? 0 : (len > room ? room : len);
+  const int4* cmds = streams + start;
+  int32_t* out = issue ? issue + start : nullptr;
   auto fetch = [&](long long i) {
     return i < len ? __ldg(cmds + i) : make_int4(NOP, 0, 0, 0);
   };
@@ -405,20 +432,16 @@ lane_scan_kernel(const int32_t* __restrict__ cycs,
     if (out && base + k < len) out[base + k] = my_t;
   }
 
-  if (out) {
-    const int32_t t_end = imax(imax(cmd_free, fence_until), mode_ready);
-    for (long long i = len + k; i < N; i += CHUNK) out[i] = t_end;
-  }
   if (k == 0) totals[f] = drain;
 }
 
 template <int NB>
 cudaError_t launch(const int32_t* cycs, const int32_t* streams,
                    const int32_t* lengths, int32_t* issue, int32_t* totals,
-                   int F, long long N, cudaStream_t stream) {
+                   int F, long long T, cudaStream_t stream) {
   lane_scan_kernel<NB><<<F, CHUNK, 0, stream>>>(
       cycs, reinterpret_cast<const int4*>(streams), lengths, issue, totals,
-      N);
+      T);
   return cudaGetLastError();
 }
 
@@ -428,21 +451,22 @@ extern "C" {
 
 // Launch the lane resolver on `stream`; returns cudaGetLastError() after
 // the launch (0 on success), or cudaErrorInvalidValue for an unsupported
-// bank count.  `issue` may be null (totals only).
+// bank count.  `streams` is the ragged slab of T commands; `issue` (T
+// entries, at the commands' offsets) may be null (totals only).
 int lane_scan_launch(const int32_t* cycs, const int32_t* streams,
                      const int32_t* lengths, int32_t* issue,
-                     int32_t* totals, int F, long long N, int num_banks,
+                     int32_t* totals, int F, long long T, int num_banks,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (num_banks) {
-    case 4: return launch<4>(cycs, streams, lengths, issue, totals, F, N, s);
-    case 8: return launch<8>(cycs, streams, lengths, issue, totals, F, N, s);
-    case 12: return launch<12>(cycs, streams, lengths, issue, totals, F, N, s);
-    case 16: return launch<16>(cycs, streams, lengths, issue, totals, F, N, s);
-    case 20: return launch<20>(cycs, streams, lengths, issue, totals, F, N, s);
-    case 24: return launch<24>(cycs, streams, lengths, issue, totals, F, N, s);
-    case 28: return launch<28>(cycs, streams, lengths, issue, totals, F, N, s);
-    case 32: return launch<32>(cycs, streams, lengths, issue, totals, F, N, s);
+    case 4: return launch<4>(cycs, streams, lengths, issue, totals, F, T, s);
+    case 8: return launch<8>(cycs, streams, lengths, issue, totals, F, T, s);
+    case 12: return launch<12>(cycs, streams, lengths, issue, totals, F, T, s);
+    case 16: return launch<16>(cycs, streams, lengths, issue, totals, F, T, s);
+    case 20: return launch<20>(cycs, streams, lengths, issue, totals, F, T, s);
+    case 24: return launch<24>(cycs, streams, lengths, issue, totals, F, T, s);
+    case 28: return launch<28>(cycs, streams, lengths, issue, totals, F, T, s);
+    case 32: return launch<32>(cycs, streams, lengths, issue, totals, F, T, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,10 +19,13 @@ fallback from one to the other.
 
 Contract shared by both (and by the reference engine, bit for bit):
 
-* ``cycs`` int32 ``(F, len(CYC_FIELDS))``; ``streams`` int32
-  ``(F, N, 4)`` = ``[op, a, b, col]``; ``lengths`` int32 ``(F,)``.
-  Commands at positions ``>= lengths[f]`` are treated as NOP; the issue
-  entry there is the lane's final NOP issue cycle.
+* ``cycs`` int32 ``(F, len(CYC_FIELDS))``; ``lengths`` int32 ``(F,)``;
+  ``streams`` int32 ``(T, 4)`` = ``[op, a, b, col]``, a ragged slab:
+  the lanes' commands end to end, ``T = sum(lengths)``, lane ``f``'s at
+  rows ``[start_f, start_f + lengths[f])`` with ``start_f`` the sum of
+  the lengths before it.  The issue cycles, when asked for, are flat
+  ``(T,)`` at the same offsets.  (A NOP advances nothing, so padding a
+  lane would change no result; the slab carries none.)
 * int32 arithmetic wraps.
 * Out-of-range ``op`` / ``a`` index the per-opcode and per-bank tables
   the way a JAX gather does: a negative index is wrapped once by adding
@@ -69,13 +72,14 @@ def lane_scan_plain(cycs: torch.Tensor, streams: torch.Tensor,
                     lengths: torch.Tensor, num_banks: int,
                     need_issue: bool = True
                     ) -> tuple[torch.Tensor | None, torch.Tensor]:
-    """The lane step in torch ops: ``(issue (F, N) | None, total (F,))``.
+    """The lane step in torch ops: ``(issue (T,) | None, total (F,))``.
 
-    Batched over the fleet; the loop over commands stops at the longest
-    true length (NOP tails advance nothing, so later issue entries are
-    each lane's final NOP issue cycle).
+    Raises unless ``lengths`` are non-negative and sum to the slab's
+    ``T`` rows.  The lanes are unpacked into a NOP-padded ``(F, steps)``
+    block for a loop batched over the fleet, which stops at the longest
+    lane (a NOP advances nothing).
     """
-    f, n, _ = streams.shape
+    f = lengths.shape[0]
     dev = streams.device
     i32 = torch.int32
     nb = int(num_banks)
@@ -92,16 +96,25 @@ def lane_scan_plain(cycs: torch.Tensor, streams: torch.Tensor,
         c["cMODE"], c["cMODE"], c["cRCD"], c["cRP"], wrburst, wrburst,
         c["cMACPIPE"], rdburst, c["cMOV"], zero], dim=1)
 
-    lengths = lengths.to(i32).clamp(0, n)
-    steps = int(lengths.max()) if f else 0
+    lens = lengths.long()
+    if f and int(lens.min()) < 0:
+        raise ValueError("lengths must be >= 0")
+    if int(lens.sum()) != streams.shape[0]:
+        raise ValueError(f"streams holds {streams.shape[0]} commands, "
+                         f"lengths sum to {int(lens.sum())}")
+    steps = int(lens.max()) if f else 0
     bank_ids = torch.arange(nb, dtype=i32, device=dev)
     neg_b = torch.full((f, nb), NEG, dtype=i32, device=dev)
 
     # Every per-command quantity that does not depend on the state is
-    # computed for the whole (F, steps) block up front.
-    live = torch.arange(steps, device=dev)[None, :] < lengths[:, None]
-    cmds = streams[:, :steps].to(i32)
-    op = torch.where(live, cmds[..., 0], 0)
+    # computed for the whole (F, steps) block up front; a row past a
+    # lane's end reads the zero row appended to the slab, a NOP.
+    pos = torch.arange(steps, device=dev)[None, :]
+    live = pos < lens[:, None]
+    rows = torch.where(live, (lens.cumsum(0) - lens)[:, None] + pos,
+                       streams.shape[0])
+    cmds = torch.cat([streams, streams.new_zeros((1, 4))])[rows].to(i32)
+    op = cmds[..., 0]
     a = cmds[..., 1]                        # rows/cols never affect timing
     opi = _table_index(op, C.NUM_OPCODES).long()
     ai = _table_index(a, nb).long()
@@ -250,13 +263,9 @@ def lane_scan_plain(cycs: torch.Tensor, streams: torch.Tensor,
 
     if not need_issue:
         return None, drain
-    # Past a lane's end every command is a NOP, whose issue cycle is the
-    # (then frozen) t0 — already what the loop wrote up to ``steps``.
-    t_end = torch.maximum(torch.maximum(cmd_free, fence_until), mode_ready)
-    out = t_end[:, None].expand(f, n).clone()
-    if issue:
-        out[:, :steps] = torch.stack(issue, dim=1)
-    return out, drain
+    if not issue:
+        return torch.zeros(0, dtype=i32, device=dev), drain
+    return torch.stack(issue, dim=1)[live], drain
 
 
 def _check(cycs: torch.Tensor, streams: torch.Tensor,
@@ -264,13 +273,13 @@ def _check(cycs: torch.Tensor, streams: torch.Tensor,
     if int(num_banks) not in SUPPORTED_BANKS:
         raise ValueError(f"num_banks must be one of {SUPPORTED_BANKS}, "
                          f"got {num_banks}")
-    if streams.dim() != 3 or streams.shape[2] != 4:
-        raise ValueError(f"streams must be (F, N, 4), got "
+    if streams.dim() != 2 or streams.shape[1] != 4:
+        raise ValueError(f"streams must be (T, 4), got "
                          f"{tuple(streams.shape)}")
-    f = streams.shape[0]
-    if tuple(cycs.shape) != (f, len(CYC_FIELDS)):
-        raise ValueError(f"cycs must be ({f}, {len(CYC_FIELDS)}), got "
+    if cycs.dim() != 2 or cycs.shape[1] != len(CYC_FIELDS):
+        raise ValueError(f"cycs must be (F, {len(CYC_FIELDS)}), got "
                          f"{tuple(cycs.shape)}")
+    f = cycs.shape[0]
     if tuple(lengths.shape) != (f,):
         raise ValueError(f"lengths must be ({f},), got "
                          f"{tuple(lengths.shape)}")
@@ -289,11 +298,14 @@ def lane_scan(cycs: torch.Tensor, streams: torch.Tensor,
               lengths: torch.Tensor, num_banks: int,
               need_issue: bool = True
               ) -> tuple[torch.Tensor | None, torch.Tensor]:
-    """Resolve a fleet of lanes: ``(issue (F, N) | None, total (F,))``.
+    """Resolve a ragged slab of lanes: ``(issue (T,) | None, total
+    (F,))``.
 
     CPU tensors run :func:`lane_scan_plain`; CUDA tensors launch the
     kernel on the current stream (building it on first use) and raise if
-    the launch fails.
+    the launch fails.  The launch reads no tensor back: the kernel clamps
+    each lane to the slab's rows, and issue entries that no lane covers
+    are left unwritten.
     """
     global LAUNCHES
     _check(cycs, streams, lengths, num_banks)
@@ -305,9 +317,9 @@ def lane_scan(cycs: torch.Tensor, streams: torch.Tensor,
                          f"{streams.device}")
     from repro_torch.kernels import build
 
-    f, n, _ = streams.shape
+    f, t = lengths.shape[0], streams.shape[0]
     totals = torch.empty(f, dtype=torch.int32, device=streams.device)
-    issue = (torch.empty((f, n), dtype=torch.int32, device=streams.device)
+    issue = (torch.empty(t, dtype=torch.int32, device=streams.device)
              if need_issue else None)
     if f == 0:
         return issue, totals
@@ -317,7 +329,7 @@ def lane_scan(cycs: torch.Tensor, streams: torch.Tensor,
         build.launch("lane_scan_launch", cycs.data_ptr(),
                      streams.data_ptr(), lengths.data_ptr(),
                      issue.data_ptr() if need_issue else None,
-                     totals.data_ptr(), f, n, int(num_banks),
+                     totals.data_ptr(), f, t, int(num_banks),
                      torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return issue, totals

@@ -103,11 +103,12 @@ class LaneTable:
     def scan(self, cycs, streams, lengths, num_banks, need_issue=True):
         assert not need_issue, "the table holds totals only"
         out = []
-        for f in range(streams.shape[0]):
-            n = int(lengths[f])
+        start = 0
+        for f, n in enumerate(lengths.tolist()):
             self.lookups += 1
-            out.append(self.totals[self.key(cycs[f].tolist(),
-                                            streams[f, :n].numpy())])
+            out.append(self.totals[self.key(
+                cycs[f].tolist(), streams[start:start + n].numpy())])
+            start += n
         return None, torch.tensor(out, dtype=torch.int32)
 
 

@@ -174,7 +174,7 @@ def test_resolve_fleet_and_run_streams_match():
     assert [a.shape for a in empty] == [(0, 5), (0,)]
 
 
-def test_one_launch_per_bank_count_padded_to_longest_lane(monkeypatch):
+def test_one_launch_per_bank_count_on_a_ragged_slab(monkeypatch):
     calls = []
     real = lane_scan.lane_scan
 
@@ -194,7 +194,7 @@ def test_one_launch_per_bank_count_padded_to_longest_lane(monkeypatch):
     engine.resolve_lanes(lanes, device="cpu")
     assert [c[0] for c in calls] == [8, 12, 16]
     for nb, shape, lengths in calls:
-        assert shape[1] == max(lengths)
+        assert shape == (sum(lengths), 4)        # true commands alone
         assert sorted(lengths) == sorted(s.shape[0] for c, s in lanes
                                          if c.num_banks == nb)
 

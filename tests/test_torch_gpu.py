@@ -79,9 +79,16 @@ def kernel_equals_plain(cycs, streams, lengths, nb, dev):
             assert ik is None
 
 
+def ragged(block: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """The ragged slab of an ``(F, N, 4)`` block: each lane's first
+    ``lengths[f]`` commands, end to end."""
+    return block[np.arange(block.shape[1])[None, :] < lengths[:, None]]
+
+
 def fuzzed(nb: int, f: int, n: int, seed: int):
-    """Random timing rows (some large enough to wrap int32) and streams
-    with ragged lengths, out-of-range opcodes and banks, junk tails."""
+    """Random timing rows (some large enough to wrap int32) and a ragged
+    slab of lanes of random lengths up to ``n`` (zero-length ones among
+    them), with out-of-range opcodes and banks."""
     rng = np.random.default_rng(seed)
     cycs = rng.integers(0, 64, size=(f, len(lane_scan.CYC_FIELDS)))
     cycs = np.where(rng.random(cycs.shape) < 0.03,
@@ -94,8 +101,9 @@ def fuzzed(nb: int, f: int, n: int, seed: int):
                                rng.integers(-2 * nb, 3 * nb, (f, n)),
                                rng.integers(0, nb, (f, n)))
     lengths = rng.integers(0, n + 1, size=f)
+    lengths[rng.random(f) < 0.1] = 0
     return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
-                 for x in (cycs, streams, lengths))
+                 for x in (cycs, ragged(streams, lengths), lengths))
 
 
 @pytest.mark.parametrize("nb", lane_scan.SUPPORTED_BANKS)
@@ -107,7 +115,7 @@ def test_kernel_matches_plain_fuzzed(dev, nb):
 def test_kernel_matches_plain_probe_lane(dev, bankgroups):
     spec = SystemSpec(timings=LpddrTimings(num_bankgroups=bankgroups))
     nb = spec.timings.num_banks
-    probe = lane_scan.probe_stream(nb)[None].contiguous()
+    probe = lane_scan.probe_stream(nb)
     kernel_equals_plain(engine.pack_cycles([spec.derive_cycles()]), probe,
                         torch.tensor([16], dtype=torch.int32), nb, dev)
 
@@ -142,9 +150,9 @@ def edge_banks(nb: int) -> tuple:
 
 
 def edge_lanes(nb: int, seed: int):
-    """Lanes of every length in ``EDGE_LENGTHS`` (padded to ``EDGE_N``
-    with junk past each length), twice: under small random timings, and
-    under timings whose ``WRAP_FIELDS`` are near -2**31.  The streams mix
+    """A ragged slab of lanes of every length in ``EDGE_LENGTHS``, twice:
+    under small random timings, and under timings whose ``WRAP_FIELDS``
+    are near -2**31.  The streams mix
     valid opcodes with ``EDGE_OPS`` and in-range banks with
     :func:`edge_banks`; each wrapping lane opens with
     ``WRAP_OPENING``."""
@@ -164,7 +172,7 @@ def edge_lanes(nb: int, seed: int):
     streams[len(EDGE_LENGTHS):, :len(WRAP_OPENING), :2] = WRAP_OPENING
     lengths = np.array(EDGE_LENGTHS * 2)
     return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
-                 for x in (cycs, streams, lengths))
+                 for x in (cycs, ragged(streams, lengths), lengths))
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -175,6 +183,43 @@ def test_kernel_matches_plain_at_chunk_and_warp_edges(dev, nb, seed):
     banks and opcodes out of range, and timings that wrap far below NEG,
     where a reduction whose idle threads held NEG would differ."""
     kernel_equals_plain(*edge_lanes(nb, seed), nb, dev)
+
+
+@pytest.mark.parametrize("nb", [8, 16])
+def test_kernel_matches_plain_on_ragged_slabs(dev, nb):
+    """Ragged slabs as the engine packs them: zero-length lanes between
+    long and 1-command ones, the longest last, and a mesh shard padded to
+    its width with zero-length rows of its first lane's timing row."""
+    rng = np.random.default_rng(nb)
+    cycs, _s, _l = fuzzed(nb, 6, 8, seed=nb)
+    lens = [0, 1, 200, 0, 0, 33, 1, 0, 400]
+    block = rng.integers(0, 17, size=(len(lens), max(lens), 4))
+    block[..., 1] = rng.integers(0, nb, size=block.shape[:2])
+    rows = cycs[rng.integers(0, cycs.shape[0], len(lens)).tolist()]
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    slab = torch.from_numpy(ragged(block, np.array(lens)).astype(np.int32))
+    kernel_equals_plain(rows.contiguous(), slab, lengths, nb, dev)
+    width = 16                  # a mesh shard: 9 lanes, then 7 padding rows
+    pad = width - len(lens)
+    kernel_equals_plain(torch.cat([rows, rows[:1].expand(pad, -1)]),
+                        slab, torch.cat([lengths, lengths.new_zeros(pad)]),
+                        nb, dev)
+
+
+def test_kernel_matches_plain_past_2_24_commands(dev):
+    """A slab of more than 2**24 commands (16.9 M in ~16.5 k lanes of
+    ~1 k): every lane's start is summed in the kernel in long long."""
+    f = 16_500
+    rng = np.random.default_rng(24)
+    lengths = rng.integers(960, 1089, size=f)
+    assert lengths.sum() > 1 << 24
+    cycs = rng.integers(0, 64, size=(f, len(lane_scan.CYC_FIELDS)))
+    block = rng.integers(0, 17, size=(f, int(lengths.max()), 4),
+                         dtype=np.int32)
+    block[..., 1] %= 16
+    kernel_equals_plain(
+        *(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+          for x in (cycs, ragged(block, lengths), lengths)), 16, dev)
 
 
 def test_launch_rejects_bad_inputs_on_card(dev):
@@ -293,11 +338,13 @@ def test_ref_engine_matches_kernel_on_every_opcode(dev, bankgroups):
     iss, tot = lane_scan.lane_scan(cycs.to(dev), packed.to(dev),
                                    lengths.to(dev), cyc.num_banks)
     iss, tot = iss.cpu().numpy(), tot.cpu().numpy()
+    at = 0
     for row, s in enumerate(streams):
         iss_ref, tot_ref = RefEngine(cyc).run(s)
-        np.testing.assert_array_equal(iss[row, : len(s)].astype(np.int64),
+        np.testing.assert_array_equal(iss[at:at + len(s)].astype(np.int64),
                                       iss_ref)
         assert int(tot[row]) == tot_ref
+        at += len(s)
 
 
 @pytest.mark.parametrize("name", ["serve_trace", "disagg_trace",

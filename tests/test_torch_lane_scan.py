@@ -3,7 +3,8 @@
 ``lane_scan_plain`` (what ``lane_scan`` runs on CPU tensors) must equal
 both ``repro.core.engine.resolve_lanes`` (the scan backend) and the
 ``RefEngine`` oracle on the conformance corpus (8, 12 and 16 banks), the
-probe lane, ragged and NOP-padded lanes and totals-only runs.  On
+probe lane, ragged slabs (zero-length lanes among them), lanes with an
+explicit NOP tail and totals-only runs.  On
 out-of-range opcodes and banks, and on timings that wrap int32, it is
 held to the JAX engine alone (the oracle's Python ints neither wrap nor
 index the same way).  ``tests/test_torch_gpu.py`` holds the CUDA kernel
@@ -48,11 +49,17 @@ def run_plain(lanes, need_issue=True):
             [(port_cyc(lanes[i][0]), lanes[i][1]) for i in idxs])
         iss, tot = lane_scan.lane_scan(cycs, streams, lengths, nb,
                                        need_issue=need_issue)
-        for row, i in enumerate(idxs):
+        assert streams.shape[0] == int(lengths.sum())
+        for row, (i, at) in enumerate(zip(idxs, starts(lengths))):
             n = lanes[i][1].shape[0]
-            out[i] = (None if iss is None else iss[row, :n].numpy(),
+            out[i] = (None if iss is None else iss[at:at + n].numpy(),
                       int(tot[row]))
     return out
+
+
+def starts(lengths):
+    """Each lane's first row in a ragged slab."""
+    return (lengths.long().cumsum(0) - lengths.long()).tolist()
 
 
 def assert_matches_jax(lanes, need_issue=True):
@@ -107,8 +114,9 @@ def test_probe_lane(bankgroups):
 
 
 def test_ragged_and_nop_padded_lanes_agree():
-    """One launch over ragged lanes == each lane alone == the lane with
-    an explicit NOP tail; commands past a lane's length are ignored."""
+    """One launch over a ragged slab == each lane alone == the lane with
+    an explicit NOP tail; a slab whose rows do not match the lengths
+    raises in the plain path."""
     rng = np.random.default_rng(4)
     cyc = REF_DEFAULT.derive_cycles()
     streams = [build_valid_stream(random_op_tuples(rng, max_ops=20))
@@ -121,16 +129,53 @@ def test_ragged_and_nop_padded_lanes_agree():
         assert gt == pt
         np.testing.assert_array_equal(gi, pi[: gi.shape[0]])
         assert (pi[gi.shape[0]:] == pi[-1]).all()
-    # garbage after the true length never reaches the state
+    # a slab shorter than the lengths say, or a negative length, raises
     cycs, packed, lengths = engine.pack_lanes([(port_cyc(cyc), s)
                                                for s in streams])
-    junk = packed.clone()
-    for row, s in enumerate(streams):
-        junk[row, s.shape[0]:] = torch.tensor([13, 1, 2, 3],
-                                              dtype=torch.int32)
-    a = lane_scan.lane_scan_plain(cycs, packed, lengths, 16)
-    b = lane_scan.lane_scan_plain(cycs, junk, lengths, 16)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert packed.shape == (sum(s.shape[0] for s in streams), 4)
+    with pytest.raises(ValueError, match="lengths sum to"):
+        lane_scan.lane_scan_plain(cycs, packed[:-1].contiguous(), lengths,
+                                  16)
+    with pytest.raises(ValueError, match="lengths sum to"):
+        lane_scan.lane_scan(cycs, packed[:-1].contiguous(), lengths, 16)
+    short = lengths.clone()
+    short[0] = -1
+    with pytest.raises(ValueError, match=">= 0"):
+        lane_scan.lane_scan_plain(cycs, packed, short, 16)
+
+
+def _ragged_slab(shape, rng):
+    """Streams of one ragged slab: zero-length lanes among others, a
+    1-command lane beside a long one, or the longest lane last."""
+    def lane(max_ops):
+        return build_valid_stream(random_op_tuples(rng, max_ops=max_ops))
+
+    empty = np.zeros((0, 4), np.int32)
+    if shape == "zero_length_interleaved":
+        return [empty, lane(12), empty, empty, lane(30), empty, lane(5),
+                empty]
+    if shape == "one_command_beside_long":
+        return [np.array([[1, 3, 7, 0]], np.int32), lane(60),
+                np.array([[4, 1, 0, 0]], np.int32)]
+    return sorted([lane(80), lane(5), lane(15)], key=len)
+
+
+@pytest.mark.parametrize("seed,shape", enumerate(
+    ["zero_length_interleaved", "one_command_beside_long", "longest_last"]))
+def test_plain_on_ragged_slabs_matches_jax_lane_by_lane(seed, shape):
+    """Ragged slabs of awkward shapes, each lane read at its offset, equal
+    the JAX engine lane by lane (it takes a zero-length lane too)."""
+    streams = _ragged_slab(shape, np.random.default_rng(seed))
+    lens = [s.shape[0] for s in streams]
+    assert {"zero_length_interleaved": lens.count(0) == 5,
+            "one_command_beside_long": lens[0] == lens[2] == 1 < lens[1],
+            "longest_last": lens[-1] > max(lens[:-1])}[shape]
+    lanes = [(REF_DEFAULT.derive_cycles(), s) for s in streams]
+    assert_matches_jax(lanes, need_issue=False)
+    got = assert_matches_jax(lanes)
+    assert_matches_ref(lanes, got)
+    for (gi, gt), n in zip(got, lens):
+        assert gi.shape == (n,) and (n or gt == 0)
 
 
 def test_totals_only_matches():
@@ -190,26 +235,26 @@ def test_int32_wraparound_matches_jax():
 @pytest.mark.parametrize("nb", [4, 32])
 def test_plain_matches_jax_on_the_kernel_edge_lanes(nb, seed):
     """The lanes ``test_torch_gpu.py`` holds the warp kernel to plain on
-    (chunk-edge lengths, 4 and 32 banks, out-of-range banks and opcodes,
-    timings near -2**31), through the JAX engine: each lane NOP-padded to
-    the full width, so the tails are compared too.  Some REFAB must issue
-    below NEG, or the lanes could not tell a reduction's neutral value."""
+    (chunk-edge lengths, zero-length lanes among them, 4 and 32 banks,
+    out-of-range banks and opcodes, timings near -2**31), through the JAX
+    engine, each lane read at its offset in the ragged slab.  Some REFAB
+    must issue below NEG, or the lanes could not tell a reduction's
+    neutral value."""
     cycs, streams, lengths = edge_lanes(nb, seed)
     issue, totals = lane_scan.lane_scan_plain(cycs, streams, lengths, nb)
+    assert issue.shape == (streams.shape[0],)
     base = dataclasses.replace(REF_DEFAULT.derive_cycles(), num_banks=nb)
-    lanes = []
-    for row, s, n in zip(cycs.tolist(), streams.numpy(), lengths.tolist()):
-        s = s.copy()
-        s[n:] = 0
-        lanes.append((dataclasses.replace(
-            base, **dict(zip(lane_scan.CYC_FIELDS, row))), s))
+    at = starts(lengths) + [streams.shape[0]]
+    lanes = [(dataclasses.replace(base, **dict(zip(lane_scan.CYC_FIELDS,
+                                                   row))),
+              streams[at[f]:at[f + 1]].numpy())
+             for f, row in enumerate(cycs.tolist())]
     ref_engine.lane_cache_reset()
     for f, (wi, wt) in enumerate(ref_engine.resolve_lanes(lanes)):
-        np.testing.assert_array_equal(issue[f].numpy(), wi,
+        np.testing.assert_array_equal(issue[at[f]:at[f + 1]].numpy(), wi,
                                       err_msg=f"issue, lane {f}")
         assert int(totals[f]) == wt, f"total, lane {f}"
-    live = torch.arange(streams.shape[1]) < lengths[:, None]
-    refab = live & (streams[..., 0] == 6)
+    refab = streams[:, 0] == 6
     assert bool((issue[refab] < lane_scan.NEG).any())
 
 
@@ -235,10 +280,10 @@ def test_wrapper_checks_inputs_and_never_counts_cpu_runs():
     with pytest.raises(TypeError, match="int32"):
         lane_scan.lane_scan(cycs, streams.long(), lengths, 16)
     with pytest.raises(ValueError, match="contiguous"):
-        wide = torch.zeros((1, streams.shape[1], 8), dtype=torch.int32)
-        lane_scan.lane_scan(cycs, wide[..., ::2], lengths, 16)
-    with pytest.raises(ValueError, match=r"\(F, N, 4\)"):
-        lane_scan.lane_scan(cycs, streams[0], lengths, 16)
+        wide = torch.zeros((streams.shape[0], 8), dtype=torch.int32)
+        lane_scan.lane_scan(cycs, wide[:, ::2], lengths, 16)
+    with pytest.raises(ValueError, match=r"\(T, 4\)"):
+        lane_scan.lane_scan(cycs, streams[None], lengths, 16)
     with pytest.raises(ValueError, match="lengths"):
         lane_scan.lane_scan(cycs, streams, lengths[:0], 16)
     with pytest.raises(ValueError, match="cpu or cuda"):
