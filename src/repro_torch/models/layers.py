@@ -120,7 +120,27 @@ class MetaDraw:
 def _div(a: torch.Tensor, b) -> torch.Tensor:
     """``a / b`` with ``b`` a tensor on ``a``'s device: CUDA divides by a
     Python scalar through its reciprocal, an ulp off true division."""
-    return a / torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    return a / scalar_like(b, a)
+
+
+_SCALARS: dict = {}
+
+
+def scalar_like(value, like: torch.Tensor) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype=like.dtype, device=like.device)``,
+    built once per (value, dtype, device) and kept, so a step captured as
+    a CUDA graph copies nothing from the host; fake and subclassed
+    tensors (the dry-run's) get a fresh one."""
+    if type(like) is not torch.Tensor:
+        return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    key = (value, like.dtype, like.device)
+    out = _SCALARS.get(key)
+    if out is None:
+        with torch.inference_mode(False):
+            out = torch.as_tensor(value, dtype=like.dtype, device=like.device)
+        if type(out) is torch.Tensor:   # not made under a fake mode
+            _SCALARS[key] = out
+    return out
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

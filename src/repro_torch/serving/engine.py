@@ -26,7 +26,8 @@ sub-step before anything reads it (as inactive slots decoding token 0).
 
 The model runs on ``device`` (default: the card), where its parameters
 must lie; each step takes one argmax over the batch on the device and
-one transfer to the host.
+one transfer to the host.  On a card a dense model's step is captured
+once as a CUDA graph and replayed (``serving/decode_graph.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import trace
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import model as M
+from . import decode_graph
 from .offload import OffloadPlanner
 from .policy import OffloadController
 
@@ -94,6 +96,8 @@ class DecodeLoop:
                                   device=self.device)
         self.active: list[Optional[Request]] = [None] * slots
         self.pos = np.zeros(slots, dtype=np.int32)
+        # On a card, a dense model's step is replayed as one CUDA graph.
+        self.decoder = decode_graph.for_loop(cfg, slots, self.device)
         # Adaptive offload control: the controller sees every decode
         # step's live batch size and runs its policy; its planner doubles
         # as the telemetry planner unless one was passed explicitly.
@@ -125,15 +129,14 @@ class DecodeLoop:
         """One batched decode step over every slot at its own position;
         the next token of every slot (one argmax, one host transfer).
         The forward's span is ``decode_step`` with no span inside it, so a
-        device trace labels the forward's launches by that name alone."""
+        device trace labels the forward's launches by that name alone.
+        ``self.decoder`` runs the forward eager or replays it as a CUDA
+        graph (``serving/decode_graph.py``)."""
         with trace.span("decode_step"):
-            logits, self.cache = M.decode_step(
-                self.cfg, self.params, self.cache,
-                torch.as_tensor(tokens, device=self.device),
-                torch.as_tensor(self.pos, device=self.device))
-            nxt = torch.argmax(logits, dim=-1)
+            self.cache = self.decoder.launch(self.cfg, self.params,
+                                             self.cache, tokens, self.pos)
         with trace.span("serving.decode_sync"):
-            return nxt.cpu().numpy().reshape(-1)
+            return self.decoder.read()
 
     def _advance(self, i: int, tok: int, tick: int) -> None:
         req = self.active[i]
