@@ -15,9 +15,9 @@ timing configuration of each lane being data of the launch.
 """
 import argparse
 
+from repro_torch.core import trace
 from repro_torch.core.pimsim import PimSimulator
 from repro_torch.core.timing import PimSpec, SystemSpec
-from repro_torch.kernels import lane_scan
 from repro_torch.pimkernel.executor import GemvRequest
 from repro_torch.pimkernel.tileconfig import PimDType
 
@@ -38,7 +38,7 @@ variants = {(mac, srf): SystemSpec(pim=PimSpec(mac_interval_ck=mac,
 # One fleet call for the entire surface: every variant's PIM point and
 # its host baseline ride the same resolve_fleet batch.
 sim = PimSimulator(device=args.device)
-launches = lane_scan.LAUNCHES
+launches = trace.totals().counter("lane_scan.launches")
 reqs = [r for spec in variants.values()
         for r in (GemvRequest.baseline(H, W, DT, spec=spec),
                   GemvRequest.pim(H, W, DT, spec=spec))]
@@ -62,7 +62,7 @@ print("\nlesson: the MAC interval dominates (compute-limited MB mode); "
 # constant: the 12 spec variants above shared a handful of kernel
 # launches (one per bank count and length bucket), not one each.
 print(f"\nlane-scan kernel launches for the whole surface: "
-      f"{lane_scan.LAUNCHES - launches}")
+      f"{trace.totals().counter('lane_scan.launches') - launches}")
 
 print("\nsoftware knob — reshape split cap (paper caps gains ~1.65x):")
 cap_specs = {cap: SystemSpec(pim=PimSpec(max_reshape_split=cap))

@@ -548,10 +548,6 @@ def _mesh_width(n: int, m: int) -> int:
     return _fleet_bucket(-(-n // m)) * m
 
 
-# Kernel launches of the mesh rung, per shard index (the plain version
-# on the CPU never counts).
-MESH_SHARD_LAUNCHES: dict[int, int] = {}
-
 _STREAMS: dict = {}
 
 
@@ -792,12 +788,11 @@ def _resolve_lanes(lanes: list, keys, need_issue: bool, dev: torch.device,
                 for k, shard_dev in enumerate(mesh):
                     rows = chunk[k * per:(k + 1) * per]
                     stream = _shard_stream(shard_dev, k)
-                    before = lane_scan.LAUNCHES
                     res = _launch(nb, rows, shard_dev, width=per,
                                   stream=stream, like=chunk[0])
-                    if lane_scan.LAUNCHES > before:
-                        MESH_SHARD_LAUNCHES[k] = \
-                            MESH_SHARD_LAUNCHES.get(k, 0) + 1
+                    if shard_dev.type == "cuda":
+                        # a shard has per > 0 rows, so the kernel ran
+                        trace.count(f"engine.mesh_launches.{k}")
                     jobs.append((rows, res, stream))
         for rows, res, stream in jobs:
             iss, tot = _read(res, stream)

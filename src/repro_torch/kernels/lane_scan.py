@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import commands as C
+from repro_torch.core import trace
 
 NEG = -(1 << 30)
 
@@ -52,9 +53,6 @@ _F = {name: j for j, name in enumerate(CYC_FIELDS)}
 
 # Bank counts the kernel is instantiated for (csrc/lane_scan.cu).
 SUPPORTED_BANKS = tuple(range(4, 33, 4))
-
-# Kernel launches so far (the plain version never counts).
-LAUNCHES = 0
 
 
 def _table_index(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -305,9 +303,9 @@ def lane_scan(cycs: torch.Tensor, streams: torch.Tensor,
     kernel on the current stream (building it on first use) and raise if
     the launch fails.  The launch reads no tensor back: the kernel clamps
     each lane to the slab's rows, and issue entries that no lane covers
-    are left unwritten.
+    are left unwritten.  Each launch adds one to the tracer's
+    ``lane_scan.launches`` (the plain version never counts).
     """
-    global LAUNCHES
     _check(cycs, streams, lengths, num_banks)
     if streams.device.type == "cpu":
         return lane_scan_plain(cycs, streams, lengths, num_banks,
@@ -331,7 +329,7 @@ def lane_scan(cycs: torch.Tensor, streams: torch.Tensor,
                      issue.data_ptr() if need_issue else None,
                      totals.data_ptr(), f, t, int(num_banks),
                      torch.cuda.current_stream().cuda_stream)
-    LAUNCHES += 1
+    trace.count("lane_scan.launches")
     return issue, totals
 
 

@@ -10,8 +10,8 @@ their operands are 16-byte aligned and each weight row is a multiple of
 split into two byte planes, int4 weights unpacked in registers), the fp
 GEMM as f16 / bf16 tiles.  Other operands go byte by byte, one warp per
 weight row.  :func:`int_variant` and :func:`fp_variant` make that choice
-by shape and alignment alone, and ``INT_VARIANT_LAUNCHES`` /
-``FP_VARIANT_LAUNCHES`` count each variant's launches.
+by shape and alignment alone, and each launch adds one to the tracer's
+``pim_gemm_int.launches.<variant>`` or ``pim_gemm_fp.launches.<variant>``.
 
 Plain versions, dispatch and counting follow ``pim_gemv.py``.
 """
@@ -19,15 +19,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import trace
+
 from .pim_gemv import (FP_X_DTYPES, INT_X_DTYPES, check_operands, row_scale,
                        vector_ok, weight_width)
 from .ref import int_matmul, unpack_w4
-
-# Kernel launches so far, by kernel (the plain versions never count).
-LAUNCHES = {"pim_gemm_int": 0, "pim_gemm_fp": 0}
-# Each GEMM's launches by kernel variant (see int_variant, fp_variant).
-INT_VARIANT_LAUNCHES = {"mma": 0, "bytes": 0}
-FP_VARIANT_LAUNCHES = {"mma": 0, "bytes": 0}
 
 
 def _check_int(wq, xb_q, w_scale, w_bits) -> torch.device:
@@ -91,8 +87,7 @@ def pim_gemm_int(wq: torch.Tensor, xb_q: torch.Tensor,
                      ws.data_ptr(), out.data_ptr(), b, h, w, w_bits,
                      INT_X_DTYPES[xb_q.dtype], int(variant == "mma"),
                      torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["pim_gemm_int"] += 1
-    INT_VARIANT_LAUNCHES[variant] += 1
+    trace.count(f"pim_gemm_int.launches.{variant}")
     return out
 
 
@@ -142,6 +137,5 @@ def pim_gemm_fp(w_fp8: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
                      out.data_ptr(), b, h, w, FP_X_DTYPES[xb.dtype],
                      int(variant == "mma"),
                      torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["pim_gemm_fp"] += 1
-    FP_VARIANT_LAUNCHES[variant] += 1
+    trace.count(f"pim_gemm_fp.launches.{variant}")
     return out

@@ -8,8 +8,10 @@ streams the weight row in 16-byte loads.  The int GEMV's vector kernel
 gives a warp R rows, whose lanes load and rearrange each activation
 chunk once for all R; :func:`gemv_int_variant` picks R by format and
 ``H`` (``"rows1"``, ``"rows2"`` or ``"rows4"``), and operands that are
-not 16-byte aligned go ``"bytes"``, a byte at a time.
-``GEMV_INT_VARIANT_LAUNCHES`` counts each variant's launches.  The
+not 16-byte aligned go ``"bytes"``, a byte at a time.  Each launch
+adds one to a tracer counter (``core/trace.py``): the int GEMV's to
+``pim_gemv_int.launches.<variant>``, the fp GEMV's to
+``pim_gemv_fp.launches``; the plain versions never count.  The
 kernels mask the ragged edge themselves; nothing is padded or copied.
 
 Each kernel sits beside its plain torch version, which repeats its
@@ -23,14 +25,10 @@ import functools
 
 import torch
 
+from repro_torch.core import trace
+
 from .ref import int_matmul, unpack_w4
 
-# Kernel launches so far, by kernel (the plain versions never count).
-LAUNCHES = {"pim_gemv_int": 0, "pim_gemv_fp": 0}
-
-# The int GEMV's launches by kernel variant (see gemv_int_variant).
-GEMV_INT_VARIANT_LAUNCHES = {"rows1": 0, "rows2": 0, "rows4": 0,
-                             "bytes": 0}
 # Weight rows per warp of the int GEMV's vector kernel, by (w_bits,
 # activation bytes): (R for small H, R for large H), the only ones the
 # kernel library builds (``Rows`` in csrc/pim_gemv.cu).  Large: H fills at
@@ -182,8 +180,7 @@ def pim_gemv_int(wq: torch.Tensor, x_q: torch.Tensor,
                      w_bits, INT_X_DTYPES[x_q.dtype],
                      0 if variant == "bytes" else int(variant[4:]),
                      torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["pim_gemv_int"] += 1
-    GEMV_INT_VARIANT_LAUNCHES[variant] += 1
+    trace.count(f"pim_gemv_int.launches.{variant}")
     return out
 
 
@@ -222,5 +219,5 @@ def pim_gemv_fp(w_fp8: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                      out.data_ptr(), h, w, FP_X_DTYPES[x.dtype],
                      vector_ok(w, w_fp8, x),
                      torch.cuda.current_stream().cuda_stream)
-    LAUNCHES["pim_gemv_fp"] += 1
+    trace.count("pim_gemv_fp.launches")
     return out

@@ -24,7 +24,7 @@ from repro.kernels import lane_scan as ref_lane_scan
 from repro.pimkernel.executor import PimExecutor as RefExecutor
 from repro.pimkernel.tileconfig import PimDType as RefDType
 
-from repro_torch.core import engine
+from repro_torch.core import engine, trace
 from repro_torch.core.timing import cycles_from_dict
 from repro_torch.kernels import lane_scan
 
@@ -272,9 +272,9 @@ def test_wrapper_checks_inputs_and_never_counts_cpu_runs():
     cycs, streams, lengths = engine.pack_lanes(
         [(port_cyc(REF_DEFAULT.derive_cycles()),
           lane_scan.probe_stream(16).numpy())])
-    before = lane_scan.LAUNCHES
+    before = trace.totals().counter("lane_scan.launches")
     lane_scan.lane_scan(cycs, streams, lengths, 16)
-    assert lane_scan.LAUNCHES == before
+    assert trace.totals().counter("lane_scan.launches") == before
     with pytest.raises(ValueError, match="num_banks"):
         lane_scan.lane_scan(cycs, streams, lengths, 6)
     with pytest.raises(TypeError, match="int32"):

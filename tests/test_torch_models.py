@@ -12,14 +12,13 @@ without the int8 KV cache.
 ``tests/golden/torch_model_logits.json`` pins granite-8b at its
 published widths cut to 2 layers, weights drawn by
 ``draw_numpy_params(cfg, seed)``, as the JAX package serves two prompts
-(``chip_smoke.serve_greedy``'s procedure); ``chip_smoke.py`` reproduces
-it on the card.  Regenerate it deliberately with
+(``torch_card.serve_greedy``'s procedure);
+``tests/test_torch_gpu.py`` reproduces it on the card.  Regenerate it deliberately with
 ``PYTHONPATH=src python tests/test_torch_models.py`` (a few minutes and
 about 8 GB of host memory).
 """
 import dataclasses
 import functools
-import importlib.util
 import json
 import pathlib
 
@@ -43,17 +42,13 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.convert import (draw_numpy_params, params_from_numpy,
                                         params_to_numpy)
 from test_models_smoke import _smoke_batch
+import torch_card
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = pathlib.Path(__file__).parent / "golden" / "torch_model_logits.json"
 ARCH_IDS = list(REF_ARCHS)
 TOL = dict(rtol=1e-4, atol=1e-4)
 FIXTURE_SEED = 0
 
-_spec = importlib.util.spec_from_file_location("chip_smoke",
-                                               ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture(autouse=True)
@@ -387,11 +382,11 @@ def test_bfloat16_leaves_cross_as_bit_patterns():
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_card_inputs_are_smoke_batch_inputs(arch):
-    """``chip_smoke.smoke_batch`` (numpy only, for the card) draws what
+    """``torch_card.smoke_batch`` (numpy only, for the card) draws what
     ``_smoke_batch`` draws."""
     rcfg = ref_smoke(REF_ARCHS[arch])
     want, _ = _batches(rcfg, s=32)
-    got = chip_smoke.smoke_batch(smoke_config(ARCHS[arch]),
+    got = torch_card.smoke_batch(smoke_config(ARCHS[arch]),
                                  np.random.default_rng(0))
     assert sorted(got) == sorted(want)
     for k in got:
@@ -417,7 +412,7 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
 # ---------------------------------------------------------------------
 
 def ref_serve_greedy(rcfg, rparams, prompts, steps, max_seq):
-    """``chip_smoke.serve_greedy`` on the JAX package (jitted)."""
+    """``torch_card.serve_greedy`` on the JAX package (jitted)."""
     rprefill, rdecode = _ref_fns(rcfg)
     cache = RM.init_cache(rcfg, len(prompts), max_seq, jnp.float32)
     rows = []
@@ -454,12 +449,12 @@ def test_fixture_procedure_matches_reference_at_smoke_size():
     cfg = smoke_config(ARCHS["granite-8b"])
     tree = draw_numpy_params(cfg, FIXTURE_SEED)
     prompts = _fixture_inputs(cfg.vocab, FIXTURE_SEED)
-    want = chip_smoke.logit_records(
+    want = torch_card.logit_records(
         ref_serve_greedy(rcfg, jax.tree.map(jnp.asarray, tree), prompts, 4,
                          16), FIXTURE_SEED)
-    got = chip_smoke.serve_greedy(M, cfg, params_from_numpy(tree, "cpu"),
+    got = torch_card.serve_greedy(M, cfg, params_from_numpy(tree, "cpu"),
                                   prompts, 4, 16, "cpu")
-    msg, worst = chip_smoke.logits_mismatch(want, got, 1e-4)
+    msg, worst = torch_card.logits_mismatch(want, got, 1e-4)
     assert msg is None, msg
     assert worst < 1e-5
 
@@ -499,7 +494,7 @@ def _fixture() -> dict:
     steps = ref_serve_greedy(rcfg, rparams, prompts, 4, 16)
     return dict(arch="granite-8b", n_layers=2, seed=FIXTURE_SEED,
                 max_seq=16, decode_steps=4, rel_tol=1e-4, prompts=prompts,
-                steps=chip_smoke.logit_records(steps, FIXTURE_SEED))
+                steps=torch_card.logit_records(steps, FIXTURE_SEED))
 
 
 if __name__ == "__main__":          # regenerate the committed fixture

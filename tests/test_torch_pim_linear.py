@@ -14,12 +14,11 @@ bit pattern.
 
 ``tests/golden/torch_pim_linear.json`` pins one granite-8b layer plus
 ``lm_head`` at full width, all 7 dtypes, batch 1 and 8, as the JAX
-package computes them; ``chip_smoke.py`` and ``tests/test_torch_gpu.py``
-reproduce it on the card.  Regenerate it deliberately with
+package computes them; ``tests/test_torch_gpu.py`` reproduces it on
+the card.  Regenerate it deliberately with
 ``PYTHONPATH=src python tests/test_torch_pim_linear.py`` (some minutes
 and a few GB of host memory: ``lm_head`` is 49152 x 4096).
 """
-import importlib.util
 import json
 import pathlib
 import time
@@ -41,17 +40,13 @@ from repro.serving.offload import decode_gemv_sites as ref_sites
 
 from repro_torch.kernels import ops, pim_gemm, pim_gemv, ref
 from repro_torch.pimkernel.tileconfig import ALL_DTYPES
+import torch_card
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = pathlib.Path(__file__).parent / "golden" / "torch_pim_linear.json"
 SHAPES = [(128, 256), (256, 512), (384, 640), (130, 258), (64, 1024)]
 BLOCK = (128, 256)
 FP_TOL = dict(rtol=1e-5, atol=1e-4)
 
-_spec = importlib.util.spec_from_file_location("chip_smoke",
-                                               ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
 
 
 def t(a) -> torch.Tensor:
@@ -116,9 +111,9 @@ def test_gemv_int_bit_for_bit(h, w, w_bits, a_bits):
         wk, xq = _put_extremes(wk, xq, w_bits, a_bits)
     want = jax_gemv_int(jnp.asarray(wk), jnp.asarray(xq), jnp.asarray(ws),
                         xs, w_bits=w_bits, block=BLOCK, interpret=True)
-    before = dict(pim_gemv.LAUNCHES)
+    before = torch_card.launch_counts()
     got = pim_gemv.pim_gemv_int(t(wk), t(xq), t(ws), xs, w_bits=w_bits)
-    assert pim_gemv.LAUNCHES == before          # CPU: the plain version
+    assert torch_card.launch_counts() == before   # CPU: the plain version
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(
         ref.ref_gemv_int(t(wk), t(xq), t(ws), xs, w_bits=w_bits).numpy(),
@@ -373,14 +368,14 @@ def test_fp_gemm_variant_is_chosen_by_shape_and_alignment(w, x_dtype, skew,
     w8 = torch.zeros((17, w)).to(torch.float8_e4m3fn)
     xb = torch.zeros((9, w)).to(x_dtype)
     if skew == "w":
-        w8 = chip_smoke.misaligned(w8)
+        w8 = torch_card.misaligned(w8)
     if skew == "x":
-        xb = chip_smoke.misaligned(xb)
+        xb = torch_card.misaligned(xb)
     assert pim_gemm.fp_variant(w8, xb) == want
-    before = dict(pim_gemm.FP_VARIANT_LAUNCHES)
+    before = torch_card.launch_counts()
     out = pim_gemm.pim_gemm_fp(w8, xb)
     assert out.shape == (9, 17)
-    assert pim_gemm.FP_VARIANT_LAUNCHES == before
+    assert torch_card.launch_counts() == before
 
 
 @pytest.mark.parametrize("w_bits,w,x_dtype,skew,want", [
@@ -404,14 +399,14 @@ def test_int_gemm_variant_is_chosen_by_shape_and_alignment(w_bits, w,
     wq = torch.ones((17, w * w_bits // 8), dtype=torch.int8)
     xb = torch.ones((9, w), dtype=x_dtype)
     if skew == "w":
-        wq = chip_smoke.misaligned(wq)
+        wq = torch_card.misaligned(wq)
     if skew == "x":
-        xb = chip_smoke.misaligned(xb)
+        xb = torch_card.misaligned(xb)
     assert pim_gemm.int_variant(wq, xb) == want
-    before = dict(pim_gemm.INT_VARIANT_LAUNCHES)
+    before = torch_card.launch_counts()
     out = pim_gemm.pim_gemm_int(wq, xb, torch.ones(17), 0.5, w_bits=w_bits)
     assert out.shape == (9, 17)
-    assert pim_gemm.INT_VARIANT_LAUNCHES == before
+    assert torch_card.launch_counts() == before
 
 
 @pytest.mark.parametrize("w_bits,x_dtype,h,w,skew,want", [
@@ -438,16 +433,14 @@ def test_gemv_int_variant_is_chosen_by_shape_and_alignment(w_bits, x_dtype,
     wq = torch.ones((h, w * w_bits // 8), dtype=torch.int8)
     x = torch.ones(w, dtype=x_dtype)
     if skew == "w":
-        wq = chip_smoke.misaligned(wq)
+        wq = torch_card.misaligned(wq)
     if skew == "x":
-        x = chip_smoke.misaligned(x)
+        x = torch_card.misaligned(x)
     assert pim_gemv.gemv_int_variant(wq, x, w_bits) == want
-    before = (dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES),
-              dict(pim_gemv.LAUNCHES))
+    before = torch_card.launch_counts()
     out = pim_gemv.pim_gemv_int(wq, x, torch.ones(h), 0.5, w_bits=w_bits)
     assert out.shape == (h,)
-    assert (dict(pim_gemv.GEMV_INT_VARIANT_LAUNCHES),
-            dict(pim_gemv.LAUNCHES)) == before
+    assert torch_card.launch_counts() == before
 
 
 # ---------------------------------------------------------------------
@@ -460,14 +453,14 @@ def test_fixture_reproduced_at_one_full_width_site():
     fixture = json.loads(FIXTURE.read_text())
     index, site = next((i, s) for i, s in enumerate(fixture["sites"])
                        if s["name"] == "attn.wk")
-    wts, acts = chip_smoke.site_inputs(fixture["seed"], index, site["h"],
+    wts, acts = torch_card.site_inputs(fixture["seed"], index, site["h"],
                                        site["w"])
     for dtype in ALL_DTYPES:
         qw = ops.prepare_weights(wts, dtype, device="cpu")
         for b in (1, 8):
             y = ops.pim_linear(acts[0] if b == 1 else acts, qw).numpy()
             key = f"{site['name']}/{dtype.name}/b{b}"
-            assert chip_smoke.fixture_mismatch(
+            assert torch_card.fixture_mismatch(
                 fixture["results"][key], y, fixture["fp_rel_tol"]) is None
 
 
@@ -492,7 +485,7 @@ def _fixture() -> dict:
                     "pim_linear (int: Pallas interpret mode, sha256 of the "
                     "float32 output bytes) and pim_linear_ref (fp: a "
                     "strided sample, its sums of |w*x|, the output's sum "
-                    "and largest magnitude). Inputs: chip_smoke.site_inputs"
+                    "and largest magnitude). Inputs: torch_card.site_inputs"
                     "(seed, site index, h, w).",
            "seed": seed,
            "fp_rel_tol": FP_REL_TOL,
@@ -503,7 +496,7 @@ def _fixture() -> dict:
            "sites": [dict(name=s.name, h=s.h, w=s.w) for s in sites],
            "results": {}}
     for index, s in enumerate(sites):
-        wts, acts = chip_smoke.site_inputs(seed, index, s.h, s.w)
+        wts, acts = torch_card.site_inputs(seed, index, s.h, s.w)
         for dtype in ALL_DTYPES:
             t0 = time.perf_counter()
             qw = jops.prepare_weights(wts, dtype.name)
@@ -524,7 +517,7 @@ def _fixture() -> dict:
                                           == 8 else jnp.bfloat16)
                 ).astype(np.float32)).reshape(-1, s.w)
                 abs_all = (xk @ wabs.T).reshape(-1)        # (B * H,)
-                idx = chip_smoke.sample_index(y.size)
+                idx = torch_card.sample_index(y.size)
                 rows = idx % s.h
                 abs_s = np.einsum("kw,kw->k", wabs[rows].astype(np.float64),
                                   xk[idx // s.h].astype(np.float64))

@@ -6,15 +6,15 @@ resolver); the reference runs on JAX's CPU backend.  The whole slice —
 — must agree exactly: the committed ``fleet_parity.json`` cycles and
 energy, functional co-simulation outputs, and the offload decisions of a
 granite-8b smoke config.  The rules of the port are checked here too: no
-module of ``repro_torch`` (nor ``chip_smoke.py`` or
-``tests/test_torch_gpu.py``) imports ``jax``, ``ml_dtypes`` or
-``repro``, and an entry point given no device raises when there is no
-card.
+module of ``repro_torch`` (nor ``chip_smoke.py``, ``tests/torch_card.py``
+or ``tests/test_torch_gpu.py``) imports ``jax``, ``jaxlib``,
+``ml_dtypes`` or ``repro``, and an entry point given no device raises
+when there is no card.
 
 ``tests/golden/torch_port_points.json`` pins the full-width numbers the
-port must reproduce on the card (``chip_smoke.py`` and
-``tests/test_torch_gpu.py``): the quickstart points and the granite-8b
-W8A8 offload plan, both computed by the JAX package.  Regenerate it
+port must reproduce on the card (``tests/test_torch_gpu.py``): the
+quickstart points and the granite-8b W8A8 offload plan, both computed by
+the JAX package.  Regenerate it
 deliberately with ``PYTHONPATH=src python tests/test_torch_slice.py``.
 """
 import ast
@@ -234,9 +234,11 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 def test_port_never_imports_jax_or_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+    card = [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_card.py",
+            ROOT / "tests" / "test_torch_gpu.py"]
     names = {str(f.relative_to(ROOT / "src" / "repro_torch"))
-             for f in files[:-2]}
+             for f in files}
+    files += card
     assert {"core/faults.py", "core/engine_ref.py", "configs/__init__.py",
             "configs/specfam.py", "configs/qwen2_72b.py",
             "serving/policy.py", "serving/scenarios.py"} <= names

@@ -19,7 +19,9 @@ import torch
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.core import engine, trace
 from repro_torch.core.timing import DEFAULT_SYSTEM
+from repro_torch.kernels import lane_scan
 from repro_torch.serving.offload import OffloadPlanner, decode_gemv_sites
+import torch_card
 
 
 def _last(root: str) -> trace.Frame:
@@ -208,6 +210,36 @@ def test_lane_counters_live_in_the_tracer():
     assert trace.totals().counter("engine.lane_misses") == before + 1
     engine.lane_cache_reset()
     assert engine.lane_cache_info()["misses"] == 0
+
+
+@pytest.mark.parametrize("rung", ["mesh", "threaded"])
+def test_the_plain_version_counts_no_launch_on_any_rung(rung):
+    """Kernel launches are counted where the kernel runs: a resolve over
+    two CPU lane devices, on the mesh rung or the threaded one, runs the
+    plain version, and no ``*.launches`` or ``engine.mesh_launches.*``
+    counter moves."""
+    engine.lane_cache_reset()
+    cyc = DEFAULT_SYSTEM.derive_cycles()
+    probe = lane_scan.probe_stream(cyc.num_banks).numpy()
+    lanes = [(cyc, probe[:n]) for n in range(4, 12)]
+    before = torch_card.launch_counts()
+    scans = trace.totals().spans.get("lane_scan.launch", (0, 0, 0))[0]
+    if rung == "mesh":
+        with engine.lane_mesh_scope(["cpu"] * 2):
+            assert engine.ladder_rungs() == ["mesh", "scan"]
+            engine.resolve_lanes(lanes, device="cpu")
+        launched = 2                    # one a shard
+    else:
+        engine.configure_lane_devices(["cpu"] * 2)
+        try:
+            assert engine.ladder_rungs() == ["threaded", "scan"]
+            engine.resolve_lanes(lanes, device="cpu")
+        finally:
+            engine.configure_lane_devices(None)
+        launched = 1                    # eight lanes: one slab
+    assert trace.totals().spans["lane_scan.launch"][0] == scans + launched
+    assert torch_card.launch_counts() == before
+    engine.lane_cache_reset()
 
 
 def test_the_launchers_spans_row():

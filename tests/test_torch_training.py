@@ -27,15 +27,14 @@ trees from the JAX package's ``init_params`` (crossed with
 
 ``tests/golden/torch_train_steps.json`` pins four JAX ``Trainer`` steps
 of granite-8b at its published widths cut to 2 of 36 layers (weights
-from ``draw_numpy_params(cfg, 0)``); ``chip_smoke.py`` phase 11 holds
-the port on the card to it (``chip_smoke.train_mismatch``).  Regenerate
+from ``draw_numpy_params(cfg, 0)``); ``tests/test_torch_gpu.py`` holds
+the port on the card to it (``torch_card.train_mismatch``).  Regenerate
 it deliberately with ``PYTHONPATH=src python tests/test_torch_training.py``
 (a few minutes and ~25 GB of host memory); ``... --port-distance`` runs
 the port on the CPU against it and prints each tolerance's worst share.
 """
 import contextlib
 import dataclasses
-import importlib.util
 import json
 import math
 import os
@@ -77,6 +76,7 @@ from repro_torch.training import fault as F
 from repro_torch.training import grad_compress as GC
 from repro_torch.training import optimizer as OPT
 from repro_torch.training import trainer as T
+import torch_card
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = pathlib.Path(__file__).parent / "golden" / "torch_train_steps.json"
@@ -95,10 +95,6 @@ FIXTURE_RUN = dict(arch="granite-8b", n_layers=2, seed=0, batch=2, seq=64,
                    tol=dict(loss_rel=2e-5, sum_rel=2e-4, param_lrs=2.0,
                             moment_rel=0.02))
 
-_spec = importlib.util.spec_from_file_location("chip_smoke",
-                                               ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,7 +184,7 @@ def _assert_trees_equal(ref_tree, port_tree):
     got = [g.detach().cpu().numpy() for g in OPT.tree_leaves(port_tree)]
     assert len(want) == len(got)
     for w, g in zip(want, got):
-        assert chip_smoke.bits_equal(np.asarray(w), g)
+        assert torch_card.bits_equal(np.asarray(w), g)
 
 
 # ---------------------------------------------------------------------
@@ -303,9 +299,9 @@ def test_quantize_int8_bit_equal(case):
     g = _grad_cases()[case]
     rq, rs = RGC.quantize_int8(jnp.asarray(g))
     pq, ps = GC.quantize_int8(torch.from_numpy(g))
-    assert chip_smoke.bits_equal(np.asarray(rq), pq.numpy())
-    assert chip_smoke.bits_equal(np.asarray(rs), ps.numpy())
-    assert chip_smoke.bits_equal(np.asarray(RGC.dequantize_int8(rq, rs)),
+    assert torch_card.bits_equal(np.asarray(rq), pq.numpy())
+    assert torch_card.bits_equal(np.asarray(rs), ps.numpy())
+    assert torch_card.bits_equal(np.asarray(RGC.dequantize_int8(rq, rs)),
                                  GC.dequantize_int8(pq, ps).numpy())
 
 
@@ -315,7 +311,7 @@ def test_topk_mask_bit_equal(case, frac):
     g = _grad_cases()[case]
     want = np.asarray(RGC.topk_mask(jnp.asarray(g), frac))
     got = GC.topk_mask(torch.from_numpy(g), frac).numpy()
-    assert chip_smoke.bits_equal(want, got)
+    assert torch_card.bits_equal(want, got)
 
 
 @pytest.mark.parametrize("scheme", ["none", "int8", "topk", "int8+topk"])
@@ -323,7 +319,7 @@ def test_compress_decompress_and_error_feedback_bit_equal(scheme):
     cfg_r = RGC.CompressionConfig(scheme, topk_frac=0.1)
     cfg_p = GC.CompressionConfig(scheme, topk_frac=0.1)
     g = _grad_cases()["normal"]
-    assert chip_smoke.bits_equal(
+    assert torch_card.bits_equal(
         np.asarray(RGC.compress_decompress(jnp.asarray(g), cfg_r)),
         GC.compress_decompress(torch.from_numpy(g), cfg_p).numpy())
     assert GC.compression_ratio(cfg_p) == RGC.compression_ratio(cfg_r)
@@ -755,7 +751,7 @@ def test_train_small_example_on_the_cpu():
 
 def _ref_train_run(run: dict, rcfg, rparams) -> dict:
     """The fixture's procedure on the JAX package: the mirror of
-    ``chip_smoke.port_train_run``."""
+    ``torch_card.port_train_run``."""
     tr = dict(run["train"])
     with tempfile.TemporaryDirectory() as d:
         tcfg = RT.TrainConfig(
@@ -773,21 +769,21 @@ def _ref_train_run(run: dict, rcfg, rparams) -> dict:
                                       tcfg.warmup, tcfg.total_steps))
            for s in range(run["steps"])]
     return dict(losses=[h["loss"] for h in hist], lrs=lrs,
-                leaves=chip_smoke.train_state_records(named))
+                leaves=torch_card.train_state_records(named))
 
 
 def test_fixture_procedure_at_smoke_size():
     rcfg, cfg, rp, nparams = _smoke_params("granite-8b")
     run = dict(FIXTURE_RUN, batch=4, seq=16)
     fx = dict(run, records=_ref_train_run(run, rcfg, rp))
-    got = chip_smoke.port_train_run(fx, cfg, _port(nparams), "cpu")
-    msg, worst = chip_smoke.train_mismatch(fx, got)
+    got = torch_card.port_train_run(fx, cfg, _port(nparams), "cpu")
+    msg, worst = torch_card.train_mismatch(fx, got)
     assert msg is None, msg
     assert all(0 <= v <= 1 for v in worst.values())
     # and the comparison catches a wrong run
     bad = json.loads(json.dumps(got))
     bad["losses"][-1] *= 1.001
-    assert chip_smoke.train_mismatch(fx, bad)[0].startswith("step 4 loss")
+    assert torch_card.train_mismatch(fx, bad)[0].startswith("step 4 loss")
 
 
 def test_train_fixture_is_well_formed():
@@ -826,12 +822,12 @@ def _fixture() -> dict:
 
 def _port_distance() -> dict:
     """The port on the CPU against the committed fixture: the shares of
-    each tolerance that ``chip_smoke.train_mismatch`` reports."""
+    each tolerance that ``torch_card.train_mismatch`` reports."""
     fx = json.loads(FIXTURE.read_text())
     cfg = dataclasses.replace(ARCHS[fx["arch"]], n_layers=fx["n_layers"])
     params = params_from_numpy(draw_numpy_params(cfg, fx["seed"]), "cpu")
-    got = chip_smoke.port_train_run(fx, cfg, params, "cpu")
-    msg, worst = chip_smoke.train_mismatch(fx, got)
+    got = torch_card.port_train_run(fx, cfg, params, "cpu")
+    msg, worst = torch_card.train_mismatch(fx, got)
     return dict(mismatch=msg, worst_share_of_limit=worst,
                 losses=got["losses"], fixture_losses=fx["records"]["losses"])
 
