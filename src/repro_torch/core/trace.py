@@ -9,6 +9,14 @@ tensor holding a whole number on a device, which is read once, with
 every other such count, when the outermost frame closes or a reader
 asks (so counting on the card costs no synchronisation of its own).
 
+``recording()`` holds a thread's counts instead of adding them: while
+it is open, ``count`` on that thread goes to a :class:`Recording` (host
+ints summed per name, device tensors summed per name into one tensor)
+and its spans add nothing.  A CUDA graph's capture runs inside one, so
+the capture, which computes nothing, counts nothing, and the sums are
+tensors the graph's replays write; :meth:`Recording.recount` adds them
+once a replay.
+
 ``frame(name)`` is a span that, when no other frame is open on its
 thread, also records a :class:`Frame`: the change in every span total
 and counter between its entry and its exit.  Spans that worker threads
@@ -27,6 +35,7 @@ Readers: :func:`totals`, :func:`frames` and :func:`reset`.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -110,6 +119,8 @@ class span:
             self._range.__exit__(*exc)
         stack = _local.stack
         stack.pop()
+        if getattr(_local, "recording", None) is not None:
+            return False
         if stack:
             stack[-1]._child += dt
         with _lock:
@@ -182,9 +193,54 @@ def _change(after: dict, before: dict, zero) -> dict:
     return out
 
 
+class Recording:
+    """The counts made on one thread while a :func:`recording` was open:
+    ``ints`` name -> the host ints' sum, ``tensors`` name -> one tensor,
+    the device tensors' sum (taken inside a graph's capture, a tensor
+    every replay writes)."""
+
+    def __init__(self):
+        self.ints: dict[str, int] = {}
+        self.tensors: dict[str, torch.Tensor] = {}
+
+    def add(self, name: str, n) -> None:
+        if isinstance(n, torch.Tensor):
+            n = n.detach().reshape(())
+            held = self.tensors.get(name)
+            self.tensors[name] = n if held is None else held + n
+        else:
+            self.ints[name] = self.ints.get(name, 0) + n
+
+    def recount(self) -> None:
+        """Count the recording once: each int, and a copy of each tensor
+        as it holds now (one small device copy a name), so a later write to
+        it leaves this count as it is."""
+        for name, n in self.ints.items():
+            count(name, n)
+        for name, t in self.tensors.items():
+            count(name, t.clone())
+
+
+@contextlib.contextmanager
+def recording():
+    """Context manager: hold this thread's counts in a fresh
+    :class:`Recording`, which it yields, and add none of its spans."""
+    rec = Recording()
+    outer = getattr(_local, "recording", None)
+    _local.recording = rec
+    try:
+        yield rec
+    finally:
+        _local.recording = outer
+
+
 def count(name: str, n=1) -> None:
     """Add ``n`` (an int, or a one-element integer tensor) to the counter
-    ``name``."""
+    ``name``, or to this thread's open :func:`recording`."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:
+        rec.add(name, n)
+        return
     with _lock:
         if isinstance(n, torch.Tensor):
             ts = _pending.setdefault(name, [])

@@ -7,16 +7,16 @@ waits for the card once and gives the next tokens.  :func:`for_loop`
 picks the form a loop takes:
 
 - :class:`GraphStep`, on a card for a model whose every layer is
-  attention and a dense MLP (:func:`engages`).  Such a step is a
-  fixed-shape chain: every slot at once, attention over the cache padded
-  to ``max_seq`` with masks built on the device, cache rows written in
-  place through device indices.  Eager, its few thousand launches cost
-  the host more than the card's work takes; replayed as one CUDA graph,
-  they cost one graph launch.
-- :class:`EagerStep` everywhere else.  The MoE and Mamba layers open
-  spans and count device tensors inside the step, which a replay would
-  leave unrecorded, so those models keep the eager step, as does the
-  CPU.
+  attention and a dense MLP, or whose layers (``cfg.layer_types``) are
+  Mamba-2 or attention each followed by the expert-parallel MoE
+  (:func:`engages`).  Such a step is a fixed-shape chain: every slot at
+  once, attention over the cache padded to ``max_seq`` with masks built
+  on the device, cache rows and SSM / conv state written in place, the
+  MoE's capacity the token count with no count read back.  Eager, its
+  few thousand launches cost the host more than the card's work takes;
+  replayed as one CUDA graph, they cost one graph launch.
+- :class:`EagerStep` everywhere else: the CPU, the ``moe`` family,
+  Hymba's parallel heads and attention-free Mamba-2.
 
 :class:`GraphStep` holds the static inputs (tokens and positions) and
 output (next tokens) on the device, with a pinned host buffer for each
@@ -25,6 +25,12 @@ capture's warm-up) and its result is served; the capture follows and
 records without computing, so no step runs twice and a step that is not
 served writes no cache row.  Every later step copies its tokens and
 positions in and replays.
+
+The capture runs inside ``trace.recording()``: the counts the step
+makes (``moe.*``, ``ssm.state_bytes``) are held, device tensors summed
+into tensors the graph writes, and each replay counts them again, so a
+loop's counters read what an eager loop's would.  A replayed step opens
+no span inside ``decode_step``: it spends no host time in the layers.
 
 The graph holds the addresses of everything the step reads outside its
 arguments, so it is keyed on them (:func:`step_key`): the identity and
@@ -48,9 +54,10 @@ from repro_torch.models import model as M
 def engages(cfg: ArchConfig, device) -> bool:
     """Whether a decode loop of ``cfg`` on ``device`` replays its step as
     a CUDA graph: on a card, for a model of attention and dense MLP
-    layers alone."""
-    return (torch.device(device).type == "cuda" and not cfg.layer_types
-            and cfg.ssm is None and cfg.family != "moe")
+    layers alone, or of Mamba-2 and attention layers each followed by
+    the expert-parallel MoE (``layer_types``)."""
+    return torch.device(device).type == "cuda" and (
+        bool(cfg.layer_types) or (cfg.ssm is None and cfg.family != "moe"))
 
 
 def for_loop(cfg: ArchConfig, slots: int, device):
@@ -121,6 +128,7 @@ class GraphStep:
         self._graph = None
         self._key = None
         self._next = None           # the captured step's next tokens
+        self._counts = None         # the captured step's trace.recording
         self._out = None            # the next tokens :meth:`read` copies
 
     def launch(self, cfg: ArchConfig, params, cache, tokens: np.ndarray,
@@ -135,10 +143,11 @@ class GraphStep:
         key = step_key(cfg, params, cache)
         if key == self._key:
             self._graph.replay()
+            self._counts.recount()
             self._out = self._next
             trace.count("decode_graph.replays")
             return cache
-        self._graph, self._next, self._key = None, None, None
+        self._graph, self._next, self._key, self._counts = (None,) * 4
         stream = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(stream)
         with torch.cuda.stream(self._stream):
@@ -149,12 +158,14 @@ class GraphStep:
         # A step that hands back other cache tensors changes the key, so
         # its graph is never replayed.
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream,
-                              capture_error_mode="thread_local"):
+        with trace.recording() as counts, torch.cuda.graph(
+                graph, stream=self._stream,
+                capture_error_mode="thread_local"):
             logits, _ = M.decode_step(cfg, params, cache, self.tokens,
                                       self.pos)
             nxt = torch.argmax(logits, dim=-1)
         self._graph, self._next, self._key = graph, nxt, key
+        self._counts = counts
         trace.count("decode_graph.captures")
         return cache
 

@@ -26,8 +26,10 @@ sub-step before anything reads it (as inactive slots decoding token 0).
 
 The model runs on ``device`` (default: the card), where its parameters
 must lie; each step takes one argmax over the batch on the device and
-one transfer to the host.  On a card a dense model's step is captured
-once as a CUDA graph and replayed (``serving/decode_graph.py``).
+one transfer to the host.  On a card the step of a dense model, or of
+Mamba-2 and attention layers each followed by the expert-parallel MoE,
+is captured once as a CUDA graph and replayed
+(``serving/decode_graph.py``).
 """
 from __future__ import annotations
 
@@ -96,7 +98,8 @@ class DecodeLoop:
                                   device=self.device)
         self.active: list[Optional[Request]] = [None] * slots
         self.pos = np.zeros(slots, dtype=np.int32)
-        # On a card, a dense model's step is replayed as one CUDA graph.
+        # On a card, the step is replayed as one CUDA graph where
+        # decode_graph.engages says it can be.
         self.decoder = decode_graph.for_loop(cfg, slots, self.device)
         # Adaptive offload control: the controller sees every decode
         # step's live batch size and runs its policy; its planner doubles
@@ -128,10 +131,10 @@ class DecodeLoop:
     def _decode(self, tokens: np.ndarray) -> np.ndarray:
         """One batched decode step over every slot at its own position;
         the next token of every slot (one argmax, one host transfer).
-        The forward's span is ``decode_step`` with no span inside it, so a
-        device trace labels the forward's launches by that name alone.
-        ``self.decoder`` runs the forward eager or replays it as a CUDA
-        graph (``serving/decode_graph.py``)."""
+        The forward's span is ``decode_step``.  ``self.decoder`` runs the
+        forward eager, where the MoE and Mamba layers open their spans
+        inside it, or replays it as a CUDA graph, which opens none and
+        counts the step's counts again (``serving/decode_graph.py``)."""
         with trace.span("decode_step"):
             self.cache = self.decoder.launch(self.cfg, self.params,
                                              self.cache, tokens, self.pos)

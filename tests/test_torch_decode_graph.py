@@ -6,7 +6,8 @@ which models and devices take the graph; what the graph is keyed on.
 On the card (marked ``gpu``, skipped without one): replays equal an
 eager loop bit for bit, admissions, ragged positions and speculative
 sub-steps included; a change of weights, cache or model settings
-re-captures; the counters.  The file imports no JAX, so on a machine
+re-captures; the counters, the MoE and Mamba layers' counts made
+again by every replay among them.  The file imports no JAX, so on a machine
 with a card it runs as
 
     python -m pytest -q --noconftest -m gpu tests/test_torch_decode_graph.py
@@ -30,6 +31,13 @@ VARIANTS = {"dense_gqa": ("granite-8b", 0, False),
             "sliding_window": ("gemma3-4b", 0, False),
             "kv_quant": ("granite-8b", 0, True),
             "w8": ("granite-8b", 8, False)}
+# and the card's: Mamba-2 and NoPE attention layers, each with the
+# expert-parallel MoE
+GRAPH_VARIANTS = {**VARIANTS, "hybrid": ("granite-4.0-h-small", 0, False)}
+
+# The MoE and Mamba layers' counts, which a replay makes again.
+STEP_COUNTS = ("moe.assignments", "moe.assignments_held",
+               "moe.expert_rows", "ssm.state_bytes")
 
 
 def _fresh_div(a, b):
@@ -37,7 +45,7 @@ def _fresh_div(a, b):
 
 
 def _smoke(arch, device="cpu", bits=0):
-    cfg = smoke_config(ARCHS[arch])
+    cfg = smoke_config({**ARCHS, **PORT_ARCHS}[arch])
     params = M.init_params(cfg, torch.Generator(device=device)
                            .manual_seed(0), device=device)
     return cfg, (M.quantize_for_serving(params, bits) if bits else params)
@@ -114,13 +122,14 @@ def test_a_kept_scalar_is_built_once_per_value_dtype_and_device(monkeypatch):
 
 
 # Which models the graph serves: attention and a dense MLP in every
-# layer.
+# layer, or Mamba-2 and attention layers each followed by the
+# expert-parallel MoE.
 ENGAGES = {"qwen2-72b": True, "granite-8b": True, "gemma3-4b": True,
            "granite-20b": True, "internvl2-26b": True,
            "musicgen-large": True,
            "granite-moe-3b-a800m": False, "dbrx-132b": False,
            "hymba-1.5b": False, "mamba2-130m": False,
-           "granite-4.0-h-small": False}
+           "granite-4.0-h-small": True}
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
@@ -134,11 +143,15 @@ def test_when_the_graph_engages(arch, device):
 
 def test_the_decision_reads_the_layer_kinds():
     dense = ARCHS["granite-8b"]
+    n = dense.n_layers
     assert DG.engages(dense, "cuda")
-    for change in (dict(layer_types=("attention",) * dense.n_layers),
-                   dict(ssm=PORT_ARCHS["granite-4.0-h-small"].ssm),
-                   dict(family="moe", moe=ARCHS["dbrx-132b"].moe)):
-        assert not DG.engages(dataclasses.replace(dense, **change), "cuda")
+    for change, want in (
+            (dict(layer_types=("attention",) * n), True),
+            (dict(layer_types=("mamba", "attention") * (n // 2)), True),
+            (dict(ssm=PORT_ARCHS["granite-4.0-h-small"].ssm), False),
+            (dict(family="moe", moe=ARCHS["dbrx-132b"].moe), False)):
+        assert DG.engages(dataclasses.replace(dense, **change),
+                          "cuda") is want, change
 
 
 def test_a_loop_on_the_cpu_holds_no_graph():
@@ -222,7 +235,8 @@ def _lockstep(cfg, params, dev, spec=None, slots=3, max_seq=48,
     """A graph engine and an eager one (an ``EagerStep`` in its place)
     stepped together: after every engine step each slot's tokens so far
     and the whole cache are equal bit for bit, over 24 decode steps or
-    more.
+    more, and so are the counts of :data:`STEP_COUNTS` their steps'
+    frames hold.
     Returns the graph engine."""
     engines = []
     for eager in (False, True):
@@ -236,28 +250,36 @@ def _lockstep(cfg, params, dev, spec=None, slots=3, max_seq=48,
     graph_eng, eager_eng = engines
     assert isinstance(graph_eng.decoder, DG.GraphStep)
     done = 0
+    counts = [dict.fromkeys(STEP_COUNTS, 0) for _ in engines]
     while graph_eng.waiting or any(graph_eng.active):
-        graph_eng.step()
-        eager_eng.step()
+        for eng, got in zip(engines, counts):
+            eng.step()
+            f = trace.frames("serving.step")[-1]
+            for name in STEP_COUNTS:
+                got[name] += f.counter(name)
         done += 1
         outs = [[r.out if r else None for r in e.active] for e in engines]
         assert outs[0] == outs[1], done
         assert _same(graph_eng.cache, eager_eng.cache), done
     assert _decodes(graph_eng) >= 24
     assert graph_eng.completions == eager_eng.completions
+    assert counts[0] == counts[1]
     return graph_eng
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("variant", list(GRAPH_VARIANTS))
 def test_replays_equal_an_eager_loop_bit_for_bit(dev, monkeypatch, variant):
-    arch, bits, kv_quant = VARIANTS[variant]
+    arch, bits, kv_quant = GRAPH_VARIANTS[variant]
     monkeypatch.setattr(M, "QUANT_BITS", bits)
     monkeypatch.setattr(M, "KV_QUANT", kv_quant)
     cfg, params = _smoke(arch, dev, bits)
     trace.reset()
     _lockstep(cfg, params, dev)
-    assert trace.totals().counter("decode_graph.captures") == 1
+    tot = trace.totals()
+    assert tot.counter("decode_graph.captures") == 1
+    if cfg.layer_types:
+        assert all(tot.counter(name) > 0 for name in STEP_COUNTS)
 
 
 @pytest.mark.gpu
@@ -274,8 +296,29 @@ def test_replays_equal_an_eager_loop_at_granite_8b_widths(dev):
 
 
 @pytest.mark.gpu
-def test_speculative_substeps_replay_the_same_graph(dev):
-    cfg, params = _smoke("granite-8b", dev)
+def test_replays_equal_an_eager_loop_at_granite_4_0_h_small_widths(dev):
+    """granite-4.0-h-small's widths over 4 of its 40 layers (two Mamba-2
+    layers, its first attention layer, a Mamba-2 layer), each with 18
+    held experts of 72, 32 slots over a cache of 2048 positions, as the
+    served cell runs them: replayed, the eager step's bits and counts."""
+    full = PORT_ARCHS["granite-4.0-h-small"]
+    kinds = full.layer_types[3:7]
+    cfg = dataclasses.replace(full, n_layers=len(kinds), layer_types=kinds)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    trace.reset()
+    _lockstep(cfg, params, dev, slots=32, max_seq=2048, requests=64)
+    tot = trace.totals()
+    assert tot.counter("decode_graph.captures") == 1
+    assert all(tot.counter(name) > 0 for name in STEP_COUNTS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-8b", "granite-4.0-h-small"])
+def test_speculative_substeps_replay_the_same_graph(dev, arch):
+    """Several replays in one engine step's frame: their repeated counts
+    sum to the eager loop's (``_lockstep``)."""
+    cfg, params = _smoke(arch, dev)
     trace.reset()
     eng = _lockstep(cfg, params, dev,
                     spec=SpecDecodeConfig(draft_len=3, acceptance=0.6))

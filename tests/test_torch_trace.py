@@ -1,7 +1,8 @@
 """The port's tracer (``repro_torch/core/trace.py``): spans, self time,
 frames as differences of process totals (worker threads included), the
-profiler's clock shared with program spans, and the counters a design-point
-query leaves in its ``offload.plan_grid`` frame.
+profiler's clock shared with program spans, recordings (the counts a CUDA
+graph's capture holds and each replay counts again), and the counters a
+design-point query leaves in its ``offload.plan_grid`` frame.
 
 Every test reads its own frames or names, so tests that ran before in the
 same process (and their spans) change nothing here."""
@@ -108,6 +109,77 @@ def test_a_nested_frame_is_a_span():
     with trace.frame("t.nested_frame"):
         pass
     assert trace.frames()[-1].root == "t.nested_frame"
+
+
+def test_counts_inside_a_recording_reach_no_total_and_no_frame():
+    before = trace.totals()
+    with trace.frame("t.rec_frame"):
+        trace.count("t.rec_outside", 2)
+        with trace.recording() as rec:
+            trace.count("t.rec_int", 3)
+            trace.count("t.rec_int", 4)
+            trace.count("t.rec_held", torch.tensor(5))
+            trace.count("t.rec_held", torch.tensor(6))
+        trace.count("t.rec_outside", 1)
+    f = _last("t.rec_frame")
+    assert f.counts == {"t.rec_outside": 3}
+    after = trace.totals()
+    for name in ("t.rec_int", "t.rec_held"):
+        assert after.counter(name) == before.counter(name) == 0
+    assert rec.ints == {"t.rec_int": 7}
+    assert set(rec.tensors) == {"t.rec_held"}
+    assert int(rec.tensors["t.rec_held"]) == 11
+
+
+def test_a_recount_adds_each_int_and_each_tensor_as_it_holds_then():
+    held = torch.tensor(4)
+    with trace.recording() as rec:
+        trace.count("t.recount_int", 3)
+        trace.count("t.recount_held", held)
+    before = trace.totals()
+    held.fill_(7)                   # a replay writing the held tensor
+    rec.recount()
+    held.fill_(100)                 # the next replay: the count stays
+    after = trace.totals()
+    assert after.counter("t.recount_int") - before.counter(
+        "t.recount_int") == 3
+    assert after.counter("t.recount_held") - before.counter(
+        "t.recount_held") == 7
+
+
+def test_two_recounts_in_one_frame_sum():
+    held = torch.tensor(0)
+    with trace.recording() as rec:
+        trace.count("t.twice_int", 5)
+        trace.count("t.twice_held", held)
+    with trace.frame("t.twice"):
+        held.fill_(2)
+        rec.recount()
+        held.fill_(9)
+        rec.recount()
+    f = _last("t.twice")
+    assert f.counter("t.twice_int") == 10
+    assert f.counter("t.twice_held") == 11
+
+
+def test_spans_inside_a_recording_are_not_added():
+    with trace.frame("t.rec_spans"):
+        with trace.span("t.rec_parent"):
+            with trace.recording():
+                with trace.span("t.rec_child"):
+                    with trace.span("t.rec_grandchild"):
+                        time.sleep(0.002)
+        with trace.span("t.rec_after"):
+            pass
+    f = _last("t.rec_spans")
+    assert "t.rec_child" not in f.spans
+    assert "t.rec_grandchild" not in f.spans
+    # the parent outside the recording counts, and the recorded time is
+    # its own
+    parent = f.spans["t.rec_parent"]
+    assert parent[0] == 1 and parent[2] == 0 and parent[1] >= 2e6
+    assert f.spans["t.rec_after"][0] == 1
+    assert "t.rec_child" not in trace.totals().spans
 
 
 def test_no_profiler_calls_without_a_profiler(monkeypatch):
