@@ -1,7 +1,7 @@
 """Config registry: arch id -> ArchConfig."""
-from . import (dbrx_132b, gemma3_4b, granite_4_0_h_small, granite_20b,
-               granite_8b, granite_moe_3b, hymba_1_5b, internvl2_26b,
-               mamba2_130m, musicgen_large, qwen2_72b)
+from . import (dbrx_132b, deepseek_v3, gemma3_4b, granite_4_0_h_small,
+               granite_20b, granite_8b, granite_moe_3b, hymba_1_5b,
+               internvl2_26b, mamba2_130m, musicgen_large, qwen2_72b)
 from .base import SHAPES, ArchConfig, ShapeConfig, shapes_for, smoke_config
 from .specfam import SPEC_FAMILIES, family_specs
 
@@ -15,7 +15,7 @@ ARCHS: dict[str, ArchConfig] = {
 # Configurations the port alone runs: served by the launcher beside
 # ARCHS, and not held against the JAX package (which has no such model).
 PORT_ARCHS: dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (granite_4_0_h_small,)
+    m.CONFIG.name: m.CONFIG for m in (granite_4_0_h_small, deepseek_v3)
 }
 
 __all__ = ["ARCHS", "SHAPES", "SPEC_FAMILIES", "ArchConfig", "ShapeConfig",

@@ -24,6 +24,20 @@ class MoeConfig:
     first_expert: int = 0
     # width of the shared SwiGLU expert every token passes (0: none)
     shared_d_ff: int = 0
+    # width of one routed expert (0: the model's d_ff)
+    expert_d_ff: int = 0
+    # The router's rule.  "softmax": the top_k logits, their gates the
+    # softmax over those k.  "sigmoid" (DeepSeek-V3's noaux_tc): scores
+    # sigmoid(logit); the choice ranks score + a per-expert bias, among
+    # the topk_group of n_group groups whose two best biased scores sum
+    # highest; the gates are the chosen experts' unbiased scores,
+    # normalised to sum 1 when norm_topk_prob, times
+    # routed_scaling_factor.  The names are the published configs' keys.
+    scoring_func: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
 
     @property
     def n_routed(self) -> int:
@@ -42,6 +56,23 @@ class SsmConfig:
     # True multiplies first (Mamba-2's published order)
     gate_before_norm: bool = False
     norm_eps: float = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN's context extension of rotary embeddings (the published
+    configs' ``rope_scaling`` group, under its keys): frequencies
+    interpolated by ``factor`` below ``beta_slow`` rotations over
+    ``original_max_position_embeddings`` positions, kept above
+    ``beta_fast``, ramped between; attention scores times
+    ``(0.1 * mscale_all_dim * ln(factor) + 1) ** 2``."""
+    type: str = "yarn"
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,10 +98,31 @@ class ArchConfig:
     ssm: Optional[SsmConfig] = None
     input_mode: str = "tokens"      # tokens | embeddings (modality stub)
     prefix_patches: int = 0         # VLM: patch embeddings before tokens
-    # Layers of two kinds: each layer's mixer, "mamba" or "attention",
-    # each followed by the MoE (empty: every layer is the family's one
-    # kind).  The names below are the published configs' keys.
+    # Layers of mixed kinds: each layer's mixer, "mamba", "attention" or
+    # "mla", followed by the MoE, or by a dense MLP of d_ff in the first
+    # first_k_dense_replace layers (empty: every layer is the family's
+    # one kind).  The names below are the published configs' keys.
     layer_types: tuple = ()
+    first_k_dense_replace: int = 0
+    # Multi-head latent attention (mixer "mla", DeepSeek-V2/V3): queries
+    # through a q_lora_rank bottleneck; keys and values from one
+    # kv_lora_rank latent a position, which the cache holds with one
+    # rotary key of qk_rope_head_dim shared by every head.  A head's
+    # query and key are qk_nope_head_dim + qk_rope_head_dim wide, its
+    # value v_head_dim.
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # rotary over interleaved pairs (x[2i], x[2i+1]) rather than halves
+    rope_interleave: bool = False
+    rope_scaling: Optional[RopeScaling] = None
+    # The whole model's depth where this configuration holds one
+    # pipeline stage's layers (0: it holds them all); layers past the
+    # stage are of its last layer's kind.  The planner prices the whole
+    # model's decode GEMVs.
+    total_layers: int = 0
     position_embedding_type: str = "rope"   # rope | nope
     # muP scalars: embeddings times embedding_multiplier, each branch
     # times residual_multiplier, attention scores times
@@ -91,6 +143,9 @@ class ArchConfig:
             object.__setattr__(self, "moe", MoeConfig(**self.moe))
         if isinstance(self.ssm, dict):
             object.__setattr__(self, "ssm", SsmConfig(**self.ssm))
+        if isinstance(self.rope_scaling, dict):
+            object.__setattr__(self, "rope_scaling",
+                               RopeScaling(**self.rope_scaling))
         object.__setattr__(self, "layer_types", tuple(self.layer_types))
         if self.layer_types and len(self.layer_types) != self.n_layers:
             raise ValueError(f"{self.name}: {len(self.layer_types)} "
@@ -120,8 +175,25 @@ class ArchConfig:
         return self.d_inner // self.ssm.head_dim if self.ssm else 0
 
     def n_layers_of(self, kind: str) -> int:
-        """Layers whose mixer is ``kind`` ("mamba" / "attention")."""
+        """Layers whose mixer is ``kind`` ("mamba" / "attention" /
+        "mla")."""
         return sum(t == kind for t in self.layer_types)
+
+    def total_layers_of(self, kind: str) -> int:
+        """:meth:`n_layers_of` over the whole model (``total_layers``)."""
+        past = max(0, self.total_layers - self.n_layers)
+        return self.n_layers_of(kind) + past * (
+            bool(self.layer_types) and self.layer_types[-1] == kind)
+
+    @property
+    def expert_d_ff(self) -> int:
+        """The width of one routed expert."""
+        return (self.moe.expert_d_ff if self.moe else 0) or self.d_ff
+
+    @property
+    def qk_head_dim(self) -> int:
+        """A latent-attention head's query and key width."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks)."""
@@ -161,15 +233,29 @@ class ArchConfig:
         conv = (self.ssm.conv_kernel + 1) * (di + 2 * s)
         return d * (2 * di + 2 * s + nh) + di * d + conv + 3 * nh + di
 
+    def _mla_params(self) -> int:
+        d, h, q, kv = self.d_model, self.n_heads, self.q_lora_rank, \
+            self.kv_lora_rank
+        return (d * q + q + q * h * self.qk_head_dim
+                + d * (kv + self.qk_rope_head_dim) + kv
+                + kv * h * (self.qk_nope_head_dim + self.v_head_dim)
+                + h * self.v_head_dim * d)
+
     def _mixed_layer_params(self) -> int:
-        """Every layer of a ``layer_types`` model: its mixer, its MoE (the
-        experts held here, the router, the shared expert) and norms."""
-        d, m = self.d_model, self.moe
-        moe = d * m.n_routed + 3 * d * (m.n_experts * self.d_ff
+        """Every layer of a ``layer_types`` model: its mixer, its FFN
+        (the dense MLP, or the MoE: the experts held here, the router,
+        the router's bias, the shared expert) and norms."""
+        d, m, k = self.d_model, self.moe, self.first_k_dense_replace
+        moe = d * m.n_routed + 3 * d * (m.n_experts * self.expert_d_ff
                                         + m.shared_d_ff)
-        return (self.n_layers * (moe + 2 * d)
-                + self.n_layers_of("attention") * self._attn_params()
-                + self.n_layers_of("mamba") * self._ssm_params())
+        if m.scoring_func == "sigmoid":
+            moe += m.n_routed
+        mixers = {"attention": self._attn_params, "mamba": self._ssm_params,
+                  "mla": self._mla_params}
+        return (self.n_layers * 2 * d + (self.n_layers - k) * moe
+                + k * 3 * d * self.d_ff
+                + sum(n * mixers[kind]() for kind in mixers
+                      if (n := self.n_layers_of(kind))))
 
     def active_param_count(self) -> int:
         """MoE: params touched per token (for MODEL_FLOPS = 6*N_active*D)."""
@@ -234,7 +320,20 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
     if cfg.ssm:
         changes["ssm"] = dataclasses.replace(
             cfg.ssm, state_dim=16, head_dim=32, expand=2, chunk=32)
-    if cfg.layer_types:
+    if cfg.kv_lora_rank:
+        # a dense layer, then three MoE layers, every one latent
+        # attention with both bottlenecks; 16 routed experts in 4 groups
+        # (the best 2 kept), top-4, experts 4-7 held here
+        changes.update(
+            n_layers=4, layer_types=("mla",) * 4, first_k_dense_replace=1,
+            n_kv_heads=changes["n_heads"], q_lora_rank=48, kv_lora_rank=32,
+            qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+            d_head=24, total_layers=0)
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=4, router_experts=16,
+            first_expert=4, shared_d_ff=64, expert_d_ff=64, n_group=4,
+            topk_group=2)
+    elif cfg.layer_types:
         # the published pattern around its first attention layer: two
         # mamba layers, the attention layer, a mamba layer
         a = cfg.layer_types.index("attention")

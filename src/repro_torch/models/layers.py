@@ -263,14 +263,74 @@ def rms_norm(x, gamma, eps: float = 1e-5):
 
 def rope(x, positions, theta: float):
     """Rotary embedding.  x: (..., S, H, hd), positions: (..., S)."""
-    hd = x.shape[-1]
-    half = hd // 2
+    half = x.shape[-1] // 2
     ar = torch.arange(half, dtype=torch.float32, device=x.device)
     freqs = torch.exp(_div(-math.log(theta) * ar, half))
-    angles = positions[..., None].float() * freqs   # (..., S, half)
+    return rope_rotate(x, positions, freqs)
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude correction ``0.1 * mscale * ln(scale) + 1`` (1 at
+    ``scale <= 1``)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def rope_frequencies(dim: int, theta: float, scaling=None, device=None):
+    """The rotary embedding's ``dim // 2`` inverse frequencies (float32,
+    on ``device``) and the factor its cos and sin take: plain
+    ``theta ** (-2i / dim)`` and 1, or with ``scaling`` (a
+    ``configs.base.RopeScaling``) YaRN's, as the published code
+    computes them: interpolated by ``factor`` below ``beta_slow``
+    rotations over the original context, kept above ``beta_fast``,
+    ramped between the two (their dimensions floored and ceiled), and
+    the factor ``mscale(factor, mscale) / mscale(factor,
+    mscale_all_dim)``."""
+    ar = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+    pos_freqs = theta ** (ar / dim)
+    extrapolated = 1.0 / pos_freqs
+    if scaling is None:
+        return extrapolated, 1.0
+    f = scaling.factor
+    base = scaling.original_max_position_embeddings
+
+    def correction_dim(rotations: float) -> float:
+        return (dim * math.log(base / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(correction_dim(scaling.beta_fast)), 0)
+    high = min(math.ceil(correction_dim(scaling.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1 - ramp
+    inv = 1.0 / (f * pos_freqs) * (1 - keep) + extrapolated * keep
+    if scaling.mscale and scaling.mscale_all_dim:
+        factor = (yarn_mscale(f, scaling.mscale)
+                  / yarn_mscale(f, scaling.mscale_all_dim))
+    else:
+        factor = yarn_mscale(f)
+    return inv, factor
+
+
+def rope_rotate(x, positions, inv_freq, interleave: bool = False,
+                factor: float = 1.0):
+    """Rotary embedding by given inverse frequencies.  x: (..., S, H,
+    hd), positions: (..., S).  ``interleave`` rotates the pairs (x[2i],
+    x[2i+1]) and returns the rotated evens, then the rotated odds (the
+    published ``rope_interleave`` layout: queries and keys alike, so
+    their products are those of the pairs); otherwise the halves.  cos
+    and sin are times ``factor``."""
+    angles = positions[..., None].float() * inv_freq    # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x[..., :half], x[..., half:]
+    if factor != 1.0:
+        cos, sin = cos * factor, sin * factor
+    if interleave:
+        x1, x2 = x[..., 0::2], x[..., 1::2]
+    else:
+        x1, x2 = x[..., :x.shape[-1] // 2], x[..., x.shape[-1] // 2:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
 
@@ -283,7 +343,8 @@ def dense_attention(q, k, v, *, window=None, q_offset=0, kv_len=None,
                     scale=None):
     """Quadratic-path GQA attention (short sequences / decode).
 
-    q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd).  ``q_offset`` is the
+    q, k: (B, Sq|Sk, Hq|Hkv, hd); v: (B, Sk, Hkv, dv), its width its own
+    (the output's).  ``q_offset`` is the
     absolute position of q[0] — scalar, or (B,) for ragged decode slots;
     ``kv_len`` (scalar or (B,)) masks the valid cache prefix when Sk is a
     padded cache.  ``scale``: the scores' factor (None: 1/sqrt(hd)).
@@ -310,7 +371,7 @@ def dense_attention(q, k, v, *, window=None, q_offset=0, kv_len=None,
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b, sq, hq, hd)
+    return out.reshape(b, sq, hq, v.shape[-1])
 
 
 def flash_attention(q, k, v, *, window=None, q_offset=0,
@@ -324,10 +385,11 @@ def flash_attention(q, k, v, *, window=None, q_offset=0,
     sequence takes O(key blocks) ops; ``None``, as the dry-run's trace
     sets it, advances them all).  With ``FLASH_SKIP_BLOCKS``
     (queries from position 0) a key block visits only the query blocks
-    whose causal range it overlaps.
+    whose causal range it overlaps.  v's width is its own (the
+    output's).
     """
     b, sq, hq, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     dev = q.device
     bq = min(block_q, sq)
@@ -339,7 +401,7 @@ def flash_attention(q, k, v, *, window=None, q_offset=0,
     vp = F.pad(v, (0, 0, 0, 0, 0, nk * bk - sk))
     qb = qp.reshape(b, nq, bq, hkv, g, hd).permute(1, 0, 3, 4, 2, 5)
     kb = kp.reshape(b, nk, bk, hkv, hd).permute(1, 0, 3, 2, 4)
-    vb = vp.reshape(b, nk, bk, hkv, hd).permute(1, 0, 3, 2, 4)
+    vb = vp.reshape(b, nk, bk, hkv, dv).permute(1, 0, 3, 2, 4)
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     skip = FLASH_SKIP_BLOCKS and isinstance(q_offset, int) and q_offset == 0
@@ -355,7 +417,7 @@ def flash_attention(q, k, v, *, window=None, q_offset=0,
                        dtype=torch.float32, device=dev)
         l = torch.zeros((c1 - c0, b, hkv, g, bq), dtype=torch.float32,
                         device=dev)
-        acc = torch.zeros((c1 - c0, b, hkv, g, bq, hd),
+        acc = torch.zeros((c1 - c0, b, hkv, g, bq, dv),
                           dtype=torch.float32, device=dev)
         qf = qb[c0:c1].float()
         lo = c0
@@ -390,7 +452,7 @@ def flash_attention(q, k, v, *, window=None, q_offset=0,
         done.append((acc / torch.clamp_min(l, 1e-30)[..., None])
                     .to(q.dtype))
     ob = done[0] if len(done) == 1 else torch.cat(done)
-    out = ob.permute(1, 0, 4, 2, 3, 5).reshape(b, nq * bq, hq, hd)
+    out = ob.permute(1, 0, 4, 2, 3, 5).reshape(b, nq * bq, hq, dv)
     return out[:, :sq]
 
 

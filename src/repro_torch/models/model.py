@@ -7,7 +7,11 @@ across (``models/convert.py``).  The backbone is a Python loop over the
 layers; serving writes each layer's slice of the stacked cache in place.
 A model whose layers differ in mixer (``cfg.layer_types``, the port's
 alone) stacks each mixer's weights and cache over its own layers, and
-follows each with the expert-parallel MoE (``moe.held_moe_apply``).
+follows each with the expert-parallel MoE (``moe.held_moe_apply``), or
+in its first ``cfg.first_k_dense_replace`` layers with a dense MLP.  Its
+mixers are attention, Mamba-2, or multi-head latent attention
+(:func:`_mla_apply`), whose cache holds a latent and a rotary key a
+position.
 
 Public surface:
   init_params(cfg, generator, device)  -> params tree (stacked layers)
@@ -38,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import trace
 from repro_torch.core.engine import resolve_device
 from . import layers as L
 from . import moe as MOE
@@ -130,20 +135,51 @@ def _layer_init(draw, cfg: ArchConfig, lead):
     return p
 
 
+def _mla_init(draw, cfg: ArchConfig, lead):
+    """Latent attention's weights, matrices as (in, out): the query's
+    bottleneck ``wq_a`` with its norm and ``wq_b`` (each head's
+    [no-rope | rope] query), ``wkv_a`` to [latent | rotary key], the
+    latent's norm, ``wkv_b`` from the latent to each head's [key |
+    value], and ``wo``."""
+    d, h = cfg.d_model, cfg.n_heads
+    q, kv, rope = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    hv = h * cfg.v_head_dim
+    return {
+        "wq_a": draw.normal((*lead, d, q), 1.0 / math.sqrt(d)),
+        "q_norm": draw.zeros((*lead, q)),
+        "wq_b": draw.normal((*lead, q, h * cfg.qk_head_dim),
+                            1.0 / math.sqrt(q)),
+        "wkv_a": draw.normal((*lead, d, kv + rope), 1.0 / math.sqrt(d)),
+        "kv_norm": draw.zeros((*lead, kv)),
+        "wkv_b": draw.normal((*lead, kv, h * (cfg.qk_nope_head_dim
+                                             + cfg.v_head_dim)),
+                             1.0 / math.sqrt(kv)),
+        "wo": draw.normal((*lead, hv, d), 1.0 / math.sqrt(hv)),
+    }
+
+
 def _mixed_layer_init(draw, cfg: ArchConfig, lead):
-    """Layers of two kinds (``cfg.layer_types``): norms and the MoE
-    stacked over every layer, attention over the attention layers alone
-    and the Mamba mixer over the Mamba layers alone, each in layer
-    order."""
+    """Layers of mixed kinds (``cfg.layer_types``): norms stacked over
+    every layer, the MoE over the layers past
+    ``cfg.first_k_dense_replace`` and the dense MLP over those before,
+    and each mixer (attention, Mamba-2, latent attention) over its own
+    layers alone, each in layer order."""
+    k = cfg.first_k_dense_replace
     p: dict = {"ln1": draw.zeros((*lead, cfg.d_model)),
                "ln2": draw.zeros((*lead, cfg.d_model)),
-               "moe": MOE.held_moe_init(draw, cfg.d_model, cfg.d_ff,
-                                        cfg.moe, lead=lead)}
+               "moe": MOE.held_moe_init(draw, cfg.d_model, cfg.expert_d_ff,
+                                        cfg.moe,
+                                        lead=(cfg.n_layers - k,))}
+    if k:
+        p["mlp"] = L.mlp_init(draw, cfg.d_model, cfg.d_ff, cfg.mlp,
+                              lead=(k,))
     n_attn, n_mamba = cfg.n_layers_of("attention"), cfg.n_layers_of("mamba")
     if n_attn:
         p["attn"] = _attn_init(draw, cfg, (n_attn,))
     if n_mamba:
         p["ssm"] = SSM.ssm_init(draw, cfg.d_model, cfg.ssm, lead=(n_mamba,))
+    if cfg.n_layers_of("mla"):
+        p["mla"] = _mla_init(draw, cfg, (cfg.n_layers_of("mla"),))
     return p
 
 
@@ -158,12 +194,19 @@ def mixer_slots(cfg: ArchConfig) -> list[tuple[str, int]]:
     return out
 
 
-def _mixed_layer(blocks, i: int, kind: str, j: int):
+# a layer_types mixer kind -> its weights' key
+_MIXERS = {"attention": "attn", "mamba": "ssm", "mla": "mla"}
+
+
+def _mixed_layer(cfg: ArchConfig, blocks, i: int, kind: str, j: int):
     """Layer ``i``'s weights of a ``layer_types`` model: its mixer is the
-    ``j``-th of its ``kind``."""
-    mixer = "attn" if kind == "attention" else "ssm"
+    ``j``-th of its ``kind``; its FFN the dense MLP's row ``i`` before
+    ``cfg.first_k_dense_replace``, else the MoE's row past it."""
+    k = cfg.first_k_dense_replace
+    ffn = ("mlp", i) if i < k else ("moe", i - k)
+    mixer = _MIXERS[kind]
     return {"ln1": blocks["ln1"][i], "ln2": blocks["ln2"][i],
-            "moe": _layer(blocks["moe"], i),
+            ffn[0]: _layer(blocks[ffn[0]], ffn[1]),
             mixer: _layer(blocks[mixer], j)}
 
 
@@ -361,10 +404,11 @@ def _block_apply(cfg: ArchConfig, params, kind, x, positions,
 
 def _mixed_block_apply(cfg: ArchConfig, params, x, positions, cache=None,
                        pos=None):
-    """One layer of a ``layer_types`` model: its mixer (attention or
-    Mamba, whichever weights ``params`` holds), then the MoE, each
-    branch of the residual scaled by ``cfg.residual_multiplier``.
-    cache: the layer's KV or SSM / conv state, or None."""
+    """One layer of a ``layer_types`` model: its mixer (attention, Mamba
+    or latent attention, whichever weights ``params`` holds), then the
+    MoE or the dense MLP, each branch of the residual scaled by
+    ``cfg.residual_multiplier``.  cache: the layer's KV, SSM / conv
+    state or latent cache, or None."""
     cache = cache or {}
     new_cache = {}
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -372,15 +416,125 @@ def _mixed_block_apply(cfg: ArchConfig, params, x, positions, cache=None,
         y, kv, _ = _attn_apply(params["attn"], cfg, h, 1, positions,
                                cache_kv=cache.get("kv"), pos=pos)
         new_cache["kv"] = kv
+    elif "mla" in params:
+        y, new_cache["mla"] = _mla_apply(params["mla"], cfg, h, positions,
+                                         cache.get("mla"), pos)
     else:
         y, new_cache["ssm"], new_cache["conv"] = SSM.ssm_block(
             params["ssm"], h, cfg.ssm, state=cache.get("ssm"),
             conv_state=cache.get("conv"))
     x = x + cfg.residual_multiplier * y
     h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
-    y = MOE.held_moe_apply(params["moe"], h, cfg.moe)
+    if "moe" in params:
+        y = MOE.held_moe_apply(params["moe"], h, cfg.moe)
+    else:
+        y = L.mlp_apply(params["mlp"], h, cfg.mlp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + cfg.residual_multiplier * y, aux, new_cache
+
+
+# Latent attention's inner norms (the query's bottleneck, the latent)
+# take the published modules' default epsilon.
+MLA_NORM_EPS = 1e-6
+
+
+def mla_softmax_scale(cfg: ArchConfig) -> float:
+    """The scores' factor: ``qk_head_dim ** -0.5``, times YaRN's
+    ``mscale(factor, mscale_all_dim) ** 2`` where the configuration sets
+    ``mscale_all_dim``."""
+    scale = cfg.qk_head_dim ** -0.5
+    rs = cfg.rope_scaling
+    if rs is not None and rs.mscale_all_dim:
+        scale *= L.yarn_mscale(rs.factor, rs.mscale_all_dim) ** 2
+    return scale
+
+
+def _mla_apply(p, cfg: ArchConfig, x, positions, cache=None, pos=None):
+    """Multi-head latent attention (DeepSeek-V3's) over x (B, S, d) at
+    ``positions`` (B|1, S).  Returns (out, cache).
+
+    The query: ``wq_b(norm(wq_a x))``, each head's [no-rope | rope]
+    parts.  The keys and values come from ``wkv_a x`` = [latent |
+    rotary key]: the latent through its norm, the rotary key one for
+    every head.  The rope parts rotate by YaRN's frequencies over
+    interleaved pairs (``cfg.rope_interleave``); scores are times
+    :func:`mla_softmax_scale`.
+
+    ``cache``: the layer's (latent (B, T, kv_lora_rank), rotary key (B,
+    T, qk_rope_head_dim)) rows, written in place, and nothing else.
+    Without a cache, or over a prompt (S > 1), the expanded form:
+    ``wkv_b`` turns the latent into each head's key and value, and
+    ``layers.attention`` attends (dense, or blockwise past
+    ``FLASH_THRESHOLD``).  A decode step (S == 1) takes the absorbed
+    form: the query's no-rope part through each head's key block of
+    ``wkv_b`` into the latent's space, scores over the cached latent
+    and rotary key, the weighted latent through each head's value block,
+    so no per-head key or value is formed (the same products, summed in
+    another order).
+
+    Spans ``mla.project`` (projections, norms, rotation, cache writes,
+    absorption, ``wo``) and ``mla.attend`` (scores, softmax and the
+    weighted sum); counters ``mla.attended_positions`` (key positions
+    attended, summed over query rows) and, with a cache,
+    ``mla.latent_bytes`` (the cache's bytes the layer reads, the rows
+    each decode row attends, and writes).
+    """
+    b, s, _ = x.shape
+    h, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    kv, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    scale = mla_softmax_scale(cfg)
+    with trace.span("mla.project"):
+        q = L.mm(L.rms_norm(L.mm(x, p["wq_a"]), p["q_norm"], MLA_NORM_EPS),
+                 p["wq_b"]).reshape(b, s, h, nope + rope)
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+        ckv = L.mm(x, p["wkv_a"])
+        latent = L.rms_norm(ckv[..., :kv], p["kv_norm"], MLA_NORM_EPS)
+        inv, factor = L.rope_frequencies(rope, cfg.rope_theta,
+                                         cfg.rope_scaling, x.device)
+        q_rope = L.rope_rotate(q_rope, positions, inv, cfg.rope_interleave,
+                               factor)
+        k_rope = L.rope_rotate(ckv[..., None, kv:], positions, inv,
+                               cfg.rope_interleave, factor)[..., 0, :]
+        w_kv = p["wkv_b"].reshape(kv, h, nope + dv)
+        if cache is not None and s == 1:
+            c_lat, c_rope = cache
+            t = c_lat.shape[1]
+            posv = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
+                                      (b,)).to(torch.int32)
+            L.LAYOUT.write_rows_(c_lat, posv, latent)
+            L.LAYOUT.write_rows_(c_rope, posv, k_rope)
+            q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_kv[..., :nope])
+        else:
+            kv_h = L.mm(latent, p["wkv_b"]).reshape(b, s, h, nope + dv)
+            k = torch.cat([kv_h[..., :nope],
+                           k_rope[:, :, None].expand(b, s, h, rope)], dim=-1)
+            if cache is not None:
+                L.LAYOUT.write_prefix_(cache[0], latent)
+                L.LAYOUT.write_prefix_(cache[1], k_rope)
+    row = (kv + rope) * latent.element_size()
+    with trace.span("mla.attend"):
+        if cache is not None and s == 1:
+            scores = (torch.einsum("bshr,btr->bsht", q_lat, c_lat)
+                      + torch.einsum("bshp,btp->bsht", q_rope, c_rope)
+                      ) * scale
+            seen = torch.clamp(posv + 1, max=t)
+            mask = torch.arange(t, device=x.device)[None] < seen[:, None]
+            scores = torch.where(mask[:, None, None], scores, L.NEG_INF)
+            probs = torch.softmax(scores, dim=-1)
+            o_lat = torch.einsum("bsht,btr->bshr", probs, c_lat)
+            trace.count("mla.attended_positions", seen.sum())
+            trace.count("mla.latent_bytes", (seen.sum() + b) * row)
+        else:
+            o = L.attention(torch.cat([q_nope, q_rope], dim=-1), k,
+                            kv_h[..., nope:], scale=scale)
+            trace.count("mla.attended_positions", b * s * (s + 1) // 2)
+            if cache is not None:
+                trace.count("mla.latent_bytes", b * s * row)
+    with trace.span("mla.project"):
+        if cache is not None and s == 1:
+            o = torch.einsum("bshr,rhv->bshv", o_lat, w_kv[..., nope:])
+        out = L.mm(o.reshape(b, s, h * dv), p["wo"])
+    return out, cache
 
 
 def _rmsn(x):
@@ -475,7 +629,7 @@ def _backbone(cfg: ArchConfig, params, x, positions, remat: bool = True):
         body = functools.partial(_block_train, cfg, kinds[i], positions)
         if remat:
             body = _remat_wrap(body)
-        blk = (_mixed_layer(params["blocks"], i, *slots[i]) if slots
+        blk = (_mixed_layer(cfg, params["blocks"], i, *slots[i]) if slots
                else _layer(params["blocks"], i))
         x, a = body(x, blk)
         aux = aux + a
@@ -612,8 +766,10 @@ def input_specs(cfg: ArchConfig, shape, param_dtype=torch.bfloat16) -> dict:
 def init_cache(cfg: ArchConfig, batch: int, seq: int,
                dtype=torch.bfloat16, device=None) -> PyTree:
     """Per layer its KV cache, its SSM and conv state, or both (Hymba).
-    A ``layer_types`` model holds KV for its attention layers alone and
-    SSM / conv state for its Mamba layers alone, each stacked in layer
+    A ``layer_types`` model holds KV for its attention layers alone, SSM
+    / conv state for its Mamba layers alone, and for its latent-attention
+    layers alone ``"mla"``: (latent (L, batch, seq, kv_lora_rank), rotary
+    key (L, batch, seq, qk_rope_head_dim)), each stacked in layer
     order."""
     dev = resolve_device(device)
     cache = {}
@@ -639,6 +795,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int,
         cache["conv"] = torch.zeros(
             (n_ssm, batch, cfg.ssm.conv_kernel - 1, conv_dim), dtype=dtype,
             device=dev)
+    n_mla = cfg.n_layers_of("mla")
+    if n_mla:
+        cache["mla"] = tuple(
+            torch.zeros((n_mla, batch, seq, w), dtype=dtype, device=dev)
+            for w in (cfg.kv_lora_rank, cfg.qk_rope_head_dim))
     return cache
 
 
@@ -674,15 +835,17 @@ def _serve_scan(cfg: ArchConfig, params, x, positions, cache, pos):
 def _mixed_serve_scan(cfg: ArchConfig, params, x, positions, cache, pos):
     """:func:`_serve_scan` for a ``layer_types`` model: an attention layer
     writes its row of the KV cache, a Mamba layer its row of the SSM and
-    conv state."""
+    conv state, a latent-attention layer its row of the latent cache."""
     for i, (kind, j) in enumerate(mixer_slots(cfg)):
         if kind == "attention":
             lc = {"kv": (cache["kv"][0][j], cache["kv"][1][j])}
+        elif kind == "mla":
+            lc = {"mla": (cache["mla"][0][j], cache["mla"][1][j])}
         else:
             lc = {"ssm": cache["ssm"][j], "conv": cache["conv"][j]}
         x, _, new_lc = _mixed_block_apply(
-            cfg, _mixed_layer(params["blocks"], i, kind, j), x, positions,
-            cache=lc, pos=pos)
+            cfg, _mixed_layer(cfg, params["blocks"], i, kind, j), x,
+            positions, cache=lc, pos=pos)
         if "ssm" in new_lc:
             lc["ssm"].copy_(new_lc["ssm"])
             lc["conv"].copy_(new_lc["conv"])

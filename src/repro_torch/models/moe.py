@@ -11,9 +11,10 @@ Top-k takes the largest gates with ties broken by the lower expert
 index, as ``jax.lax.top_k`` does (a stable descending sort), so equal
 gates route to the same experts in both packages.
 
-:func:`held_moe_apply` is the expert-parallel layer (Granite-4.0-H's):
-told which experts this chip holds, it routes over all of them and
-returns its held experts' part of the result plus a shared expert.
+:func:`held_moe_apply` is the expert-parallel layer (Granite-4.0-H's and
+DeepSeek-V3's): told which experts this chip holds, it routes over all
+of them and returns its held experts' part of the result plus a shared
+expert.
 """
 from __future__ import annotations
 
@@ -133,16 +134,55 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float,
 
 def held_moe_init(draw, d, ff, moe, lead=()):
     """Router over every expert (``moe.n_routed``), SwiGLU weights of the
-    ``moe.n_experts`` experts held here, and the shared SwiGLU expert."""
+    ``moe.n_experts`` experts held here, and the shared SwiGLU expert;
+    the sigmoid router's bias (``e_score_correction_bias``, zeros as the
+    published model initialises it) beside them."""
     si, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
     e = moe.n_experts
-    return {
+    p = {
         "router": draw.normal((*lead, d, moe.n_routed), si),
         "wg": draw.normal((*lead, e, d, ff), si),
         "wi": draw.normal((*lead, e, d, ff), si),
         "wo": draw.normal((*lead, e, ff, d), so),
         "shared": L.mlp_init(draw, d, moe.shared_d_ff, "swiglu", lead=lead),
     }
+    if moe.scoring_func == "sigmoid":
+        p["bias"] = draw.zeros((*lead, moe.n_routed))
+    return p
+
+
+def group_limited_top_k(logits, bias, moe):
+    """DeepSeek-V3's router (``noaux_tc``) over logits (N, experts): the
+    chosen experts (N, top_k) and their gates.
+
+    Scores are ``sigmoid(logits)``; the choice ranks ``scores + bias``.
+    The experts fall into ``moe.n_group`` equal groups, each scored by
+    the sum of its two best biased scores; the ``moe.topk_group`` best
+    groups are kept (ties to the lower group), the others' experts
+    masked to -inf, as the published inference code masks them, and the
+    ``moe.top_k`` best biased scores among the rest chosen (ties to the
+    lower index).  The gates are the chosen experts' unbiased scores,
+    over their sum (plus 1e-20) when ``moe.norm_topk_prob``, times
+    ``moe.routed_scaling_factor``.
+    """
+    n, e = logits.shape
+    g = moe.n_group
+    scores = torch.sigmoid(logits)
+    choice = scores + bias.float()
+    best2 = torch.sort(choice.view(n, g, e // g), dim=-1,
+                       descending=True).values[..., :2].sum(-1)
+    kept = torch.sort(best2, dim=-1, descending=True,
+                      stable=True).indices[:, :moe.topk_group]
+    allowed = torch.zeros((n, g), dtype=torch.bool, device=logits.device)
+    allowed.scatter_(1, kept, True)
+    choice = choice.masked_fill(
+        ~allowed[:, :, None].expand(n, g, e // g).reshape(n, e),
+        float("-inf"))
+    _, idx = stable_top_k(choice, moe.top_k)
+    gates = scores.gather(1, idx)
+    if moe.norm_topk_prob:
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    return idx, gates * moe.routed_scaling_factor
 
 
 def held_moe_apply(params, x, moe):
@@ -151,14 +191,15 @@ def held_moe_apply(params, x, moe):
 
     Routing is over every expert: the top ``moe.top_k`` router logits
     (ties to the lower index), their gates the softmax over those k
-    logits.  Assignments to experts held here (``[first_expert,
-    first_expert + n_experts)``) are dispatched GShard-style into an
-    (experts, capacity, d) buffer and run as three batched matmuls;
-    assignments to absent experts add nothing.  Dropless: in a decode
-    step (S == 1) the capacity is the token count, so no count is read
-    back (every held expert's weights are read whole anyway); over a
-    prompt it is the largest held expert's count, read once, so the
-    matmuls do not run every expert over every token.
+    logits, or with ``moe.scoring_func == "sigmoid"``
+    :func:`group_limited_top_k`.  Assignments to experts held here
+    (``[first_expert, first_expert + n_experts)``) are dispatched
+    GShard-style into an (experts, capacity, d) buffer and run as three
+    batched matmuls; assignments to absent experts add nothing.
+    Dropless: in a decode step (S == 1) the capacity is the token count,
+    so no count is read back (every held expert's weights are read whole
+    anyway); over a prompt it is the largest held expert's count, read
+    once, so the matmuls do not run every expert over every token.
 
     Spans ``moe.route``, ``moe.experts`` (the held and shared experts),
     ``moe.combine``; counters ``moe.assignments`` (tokens x top-k),
@@ -171,8 +212,11 @@ def held_moe_apply(params, x, moe):
     xt = x.reshape(n, d)
     with trace.span("moe.route"):
         logits = mm(xt, params["router"]).float()
-        top, idx = stable_top_k(logits, k)                # (N, k)
-        gates = torch.softmax(top, dim=-1)
+        if moe.scoring_func == "sigmoid":
+            idx, gates = group_limited_top_k(logits, params["bias"], moe)
+        else:
+            top, idx = stable_top_k(logits, k)            # (N, k)
+            gates = torch.softmax(top, dim=-1)
         local = idx - moe.first_expert
         held = (local >= 0) & (local < e)
         # expert e's assignments in token order; absent ones to row e

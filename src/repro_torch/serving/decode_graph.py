@@ -8,11 +8,12 @@ picks the form a loop takes:
 
 - :class:`GraphStep`, on a card for a model whose every layer is
   attention and a dense MLP, or whose layers (``cfg.layer_types``) are
-  Mamba-2 or attention each followed by the expert-parallel MoE
-  (:func:`engages`).  Such a step is a fixed-shape chain: every slot at
-  once, attention over the cache padded to ``max_seq`` with masks built
-  on the device, cache rows and SSM / conv state written in place, the
-  MoE's capacity the token count with no count read back.  Eager, its
+  Mamba-2, attention or latent attention each followed by the
+  expert-parallel MoE or a dense MLP (:func:`engages`).  Such a step is
+  a fixed-shape chain: every slot at once, attention over the cache
+  (KV or latent) padded to ``max_seq`` with masks built on the device,
+  cache rows and SSM / conv state written in place, the MoE's capacity
+  the token count with no count read back.  Eager, its
   few thousand launches cost the host more than the card's work takes;
   replayed as one CUDA graph, they cost one graph launch.
 - :class:`EagerStep` everywhere else: the CPU, the ``moe`` family,
@@ -27,10 +28,11 @@ served writes no cache row.  Every later step copies its tokens and
 positions in and replays.
 
 The capture runs inside ``trace.recording()``: the counts the step
-makes (``moe.*``, ``ssm.state_bytes``) are held, device tensors summed
-into tensors the graph writes, and each replay counts them again, so a
-loop's counters read what an eager loop's would.  A replayed step opens
-no span inside ``decode_step``: it spends no host time in the layers.
+makes (``moe.*``, ``ssm.state_bytes``, ``mla.*``) are held, device
+tensors summed into tensors the graph writes, and each replay counts
+them again, so a loop's counters read what an eager loop's would.  A
+replayed step opens no span inside ``decode_step``: it spends no host
+time in the layers.
 
 The graph holds the addresses of everything the step reads outside its
 arguments, so it is keyed on them (:func:`step_key`): the identity and
@@ -54,8 +56,9 @@ from repro_torch.models import model as M
 def engages(cfg: ArchConfig, device) -> bool:
     """Whether a decode loop of ``cfg`` on ``device`` replays its step as
     a CUDA graph: on a card, for a model of attention and dense MLP
-    layers alone, or of Mamba-2 and attention layers each followed by
-    the expert-parallel MoE (``layer_types``)."""
+    layers alone, or of Mamba-2, attention or latent-attention layers
+    each followed by the expert-parallel MoE or a dense MLP
+    (``layer_types``)."""
     return torch.device(device).type == "cuda" and (
         bool(cfg.layer_types) or (cfg.ssm is None and cfg.family != "moe"))
 

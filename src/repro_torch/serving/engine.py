@@ -27,9 +27,11 @@ sub-step before anything reads it (as inactive slots decoding token 0).
 The model runs on ``device`` (default: the card), where its parameters
 must lie; each step takes one argmax over the batch on the device and
 one transfer to the host.  On a card the step of a dense model, or of
-Mamba-2 and attention layers each followed by the expert-parallel MoE,
-is captured once as a CUDA graph and replayed
-(``serving/decode_graph.py``).
+Mamba-2, attention or latent-attention layers each followed by the
+expert-parallel MoE or a dense MLP, is captured once as a CUDA graph and
+replayed (``serving/decode_graph.py``).  A latent-attention model's
+cache, prefilled and merged a slot at a time like the others, holds one
+latent and one rotary key a position and layer.
 """
 from __future__ import annotations
 

@@ -73,30 +73,55 @@ def decode_gemv_sites(cfg: ArchConfig) -> list[GemvSite]:
 
 def _mixed_decode_gemv_sites(cfg: ArchConfig) -> list[GemvSite]:
     """The published model's sites of a ``layer_types`` model, counted by
-    layer kind: attention in its attention layers, the Mamba projections
-    in its Mamba layers, and in every layer the router over every expert,
-    the top-k routed experts and the shared expert.  The sites are the
-    whole model's, whatever share of the experts a chip holds."""
-    L, d, m = cfg.n_layers, cfg.d_model, cfg.moe
-    n_attn, n_mamba = cfg.n_layers_of("attention"), cfg.n_layers_of("mamba")
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    sites = [GemvSite("attn.wq", hq * hd, d, n_attn),
-             GemvSite("attn.wk", hkv * hd, d, n_attn),
-             GemvSite("attn.wv", hkv * hd, d, n_attn),
-             GemvSite("attn.wo", d, hq * hd, n_attn),
-             GemvSite("moe.router", m.n_routed, d, L),
-             GemvSite("moe.w0", cfg.d_ff, d, L * m.top_k),
-             GemvSite("moe.w1", cfg.d_ff, d, L * m.top_k),
-             GemvSite("moe.wo", d, cfg.d_ff, L * m.top_k)]
+    layer kind over the whole model (``cfg.total_layers``): attention in
+    its attention layers; latent attention in its latent-attention
+    layers, whose decode multiplies each head's query into the latent
+    and its weighted latent out of it (``mla.q_absorb``,
+    ``mla.v_absorb``, per head) in place of ``wkv_b``; the Mamba
+    projections in its Mamba layers; the dense MLP in its first
+    ``first_k_dense_replace`` layers; and in every other layer the
+    router over every expert, the top-k routed experts and the shared
+    expert.  The sites are the whole model's, whatever share of its
+    layers and experts a chip holds."""
+    d, m, h = cfg.d_model, cfg.moe, cfg.n_heads
+    n_moe = (cfg.total_layers or cfg.n_layers) - cfg.first_k_dense_replace
+    n_attn, n_mamba, n_mla = (cfg.total_layers_of(kind) for kind in
+                              ("attention", "mamba", "mla"))
+    ff, dense = cfg.expert_d_ff, cfg.first_k_dense_replace
+    sites = []
+    if n_attn:
+        hq, hkv, hd = h, cfg.n_kv_heads, cfg.d_head
+        sites += [GemvSite("attn.wq", hq * hd, d, n_attn),
+                  GemvSite("attn.wk", hkv * hd, d, n_attn),
+                  GemvSite("attn.wv", hkv * hd, d, n_attn),
+                  GemvSite("attn.wo", d, hq * hd, n_attn)]
+    if n_mla:
+        q, kv = cfg.q_lora_rank, cfg.kv_lora_rank
+        sites += [GemvSite("mla.q_a", q, d, n_mla),
+                  GemvSite("mla.q_b", h * cfg.qk_head_dim, q, n_mla),
+                  GemvSite("mla.kv_a", kv + cfg.qk_rope_head_dim, d, n_mla),
+                  GemvSite("mla.q_absorb", kv, cfg.qk_nope_head_dim,
+                           n_mla * h),
+                  GemvSite("mla.v_absorb", cfg.v_head_dim, kv, n_mla * h),
+                  GemvSite("mla.o", d, h * cfg.v_head_dim, n_mla)]
+    if dense:
+        sites += [GemvSite("mlp.w0", cfg.d_ff, d, dense),
+                  GemvSite("mlp.w1", cfg.d_ff, d, dense),
+                  GemvSite("mlp.wo", d, cfg.d_ff, dense)]
+    sites += [GemvSite("moe.router", m.n_routed, d, n_moe),
+              GemvSite("moe.w0", ff, d, n_moe * m.top_k),
+              GemvSite("moe.w1", ff, d, n_moe * m.top_k),
+              GemvSite("moe.wo", d, ff, n_moe * m.top_k)]
     if m.shared_d_ff:
-        sites += [GemvSite("moe.shared.w0", m.shared_d_ff, d, L),
-                  GemvSite("moe.shared.w1", m.shared_d_ff, d, L),
-                  GemvSite("moe.shared.wo", d, m.shared_d_ff, L)]
-    di = cfg.d_inner
-    proj = 2 * di + 2 * cfg.ssm.state_dim + cfg.n_ssm_heads
-    sites += [GemvSite("ssm.in_proj", proj, d, n_mamba),
-              GemvSite("ssm.out_proj", d, di, n_mamba),
-              GemvSite("lm_head", cfg.vocab_padded, d, 1)]
+        sites += [GemvSite("moe.shared.w0", m.shared_d_ff, d, n_moe),
+                  GemvSite("moe.shared.w1", m.shared_d_ff, d, n_moe),
+                  GemvSite("moe.shared.wo", d, m.shared_d_ff, n_moe)]
+    if n_mamba:
+        di = cfg.d_inner
+        proj = 2 * di + 2 * cfg.ssm.state_dim + cfg.n_ssm_heads
+        sites += [GemvSite("ssm.in_proj", proj, d, n_mamba),
+                  GemvSite("ssm.out_proj", d, di, n_mamba)]
+    sites.append(GemvSite("lm_head", cfg.vocab_padded, d, 1))
     return sites
 
 

@@ -38,6 +38,8 @@ GRAPH_VARIANTS = {**VARIANTS, "hybrid": ("granite-4.0-h-small", 0, False)}
 # The MoE and Mamba layers' counts, which a replay makes again.
 STEP_COUNTS = ("moe.assignments", "moe.assignments_held",
                "moe.expert_rows", "ssm.state_bytes")
+# A latent-attention model's: its MoE layers' and its attention's.
+MLA_COUNTS = STEP_COUNTS[:3] + ("mla.attended_positions", "mla.latent_bytes")
 
 
 def _fresh_div(a, b):
@@ -129,7 +131,7 @@ ENGAGES = {"qwen2-72b": True, "granite-8b": True, "gemma3-4b": True,
            "musicgen-large": True,
            "granite-moe-3b-a800m": False, "dbrx-132b": False,
            "hymba-1.5b": False, "mamba2-130m": False,
-           "granite-4.0-h-small": True}
+           "granite-4.0-h-small": True, "deepseek-v3": True}
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
@@ -231,12 +233,12 @@ def _decodes(eng) -> int:
 
 
 def _lockstep(cfg, params, dev, spec=None, slots=3, max_seq=48,
-              requests=9):
+              requests=9, step_counts=STEP_COUNTS):
     """A graph engine and an eager one (an ``EagerStep`` in its place)
     stepped together: after every engine step each slot's tokens so far
     and the whole cache are equal bit for bit, over 24 decode steps or
-    more, and so are the counts of :data:`STEP_COUNTS` their steps'
-    frames hold.
+    more, and so are the counts of ``step_counts`` their steps' frames
+    hold.
     Returns the graph engine."""
     engines = []
     for eager in (False, True):
@@ -250,12 +252,12 @@ def _lockstep(cfg, params, dev, spec=None, slots=3, max_seq=48,
     graph_eng, eager_eng = engines
     assert isinstance(graph_eng.decoder, DG.GraphStep)
     done = 0
-    counts = [dict.fromkeys(STEP_COUNTS, 0) for _ in engines]
+    counts = [dict.fromkeys(step_counts, 0) for _ in engines]
     while graph_eng.waiting or any(graph_eng.active):
         for eng, got in zip(engines, counts):
             eng.step()
             f = trace.frames("serving.step")[-1]
-            for name in STEP_COUNTS:
+            for name in step_counts:
                 got[name] += f.counter(name)
         done += 1
         outs = [[r.out if r else None for r in e.active] for e in engines]
@@ -311,6 +313,40 @@ def test_replays_equal_an_eager_loop_at_granite_4_0_h_small_widths(dev):
     tot = trace.totals()
     assert tot.counter("decode_graph.captures") == 1
     assert all(tot.counter(name) > 0 for name in STEP_COUNTS)
+
+
+@pytest.mark.gpu
+def test_replays_equal_an_eager_loop_for_latent_attention(dev):
+    """DeepSeek-V3 at its smoke size: the absorbed decode over the
+    latent cache and the group-limited router, replayed, give the eager
+    step's bits and counts."""
+    cfg, params = _smoke("deepseek-v3", dev)
+    trace.reset()
+    _lockstep(cfg, params, dev, step_counts=MLA_COUNTS)
+    tot = trace.totals()
+    assert tot.counter("decode_graph.captures") == 1
+    assert all(tot.counter(name) > 0 for name in MLA_COUNTS)
+
+
+@pytest.mark.gpu
+def test_replays_equal_an_eager_loop_at_deepseek_v3_widths(dev):
+    """DeepSeek-V3's widths over 4 of its layers (a dense layer, then
+    three MoE layers of 8 held experts of 256), 32 slots over a latent
+    cache of 4608 positions, as the served cell runs them: replayed, the
+    eager step's bits and counts."""
+    full = PORT_ARCHS["deepseek-v3"]
+    cfg = dataclasses.replace(full, n_layers=4, layer_types=("mla",) * 4,
+                              first_k_dense_replace=1)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    params["blocks"]["moe"]["bias"].normal_(
+        0.0, 0.01, generator=torch.Generator(device=dev).manual_seed(1))
+    trace.reset()
+    _lockstep(cfg, params, dev, slots=32, max_seq=4608, requests=64,
+              step_counts=MLA_COUNTS)
+    tot = trace.totals()
+    assert tot.counter("decode_graph.captures") == 1
+    assert all(tot.counter(name) > 0 for name in MLA_COUNTS)
 
 
 @pytest.mark.gpu

@@ -79,9 +79,17 @@ def test_registry_order_and_families():
 # model.
 PORT_ONLY = {None: {"layer_types": (), "position_embedding_type": "rope",
                     "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
-                    "attention_multiplier": None, "logits_scaling": 1.0},
+                    "attention_multiplier": None, "logits_scaling": 1.0,
+                    "first_k_dense_replace": 0, "q_lora_rank": 0,
+                    "kv_lora_rank": 0, "qk_nope_head_dim": 0,
+                    "qk_rope_head_dim": 0, "v_head_dim": 0,
+                    "rope_interleave": False, "rope_scaling": None,
+                    "total_layers": 0},
              "moe": {"router_experts": None, "first_expert": 0,
-                     "shared_d_ff": 0},
+                     "shared_d_ff": 0, "expert_d_ff": 0,
+                     "scoring_func": "softmax", "n_group": 1,
+                     "topk_group": 1, "norm_topk_prob": True,
+                     "routed_scaling_factor": 1.0},
              "ssm": {"gate_before_norm": False, "norm_eps": 1e-6}}
 
 

@@ -1023,6 +1023,50 @@ def test_smoke_hybrid_on_card_against_the_reference(dev):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def test_smoke_deepseek_v3_on_card_against_the_reference(dev):
+    """DeepSeek-V3 at its smoke size on the card, TF32 off: the full
+    forward (expanded latent attention) and an engine's prefill and
+    ragged decode (absorbed, its step replayed as a CUDA graph) held to
+    the plain reference's full forward, as ``test_torch_deepseek_v3.py``
+    holds them on the CPU (same tolerance, same reason)."""
+    import test_torch_deepseek_v3 as D
+
+    def to(tree):
+        return ({k: to(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.to(dev))
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p = to(D.weights())
+        seq = D.tokens(75).to(dev)
+        got, _ = M.forward(D.CFG, p, {"tokens": seq[None]})
+        want = D.REF.logits(D.cfg_dict(), p, seq)
+        assert D.rel_err(got[0], want) < D.REL_TOL
+        trace.reset("decode_graph.captures", "decode_graph.replays")
+        eng = ServingEngine(D.CFG, p, slots=3, max_seq=96, device=dev)
+        reqs = [Request(rid=i, prompt=D.tokens(n, seed=10 + i).numpy(),
+                        max_new=m)
+                for i, (n, m) in enumerate([(40, 9), (7, 14), (33, 5),
+                                            (20, 8), (1, 6)])]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=100)
+        tot = trace.totals()
+        assert tot.counter("decode_graph.captures") == 1
+        assert tot.counter("decode_graph.replays") > 10
+        for r in reqs:
+            seq = list(r.prompt) + r.out[:-1]
+            ref = D.REF.logits(D.cfg_dict(), p, torch.as_tensor(seq),
+                               range(len(r.prompt) - 1, len(seq)))
+            best = ref.max(-1).values
+            chosen = ref.gather(1, torch.as_tensor(r.out, device=dev)[:, None])
+            assert float((best - chosen[:, 0]).max()) <= \
+                D.REL_TOL * float(ref.abs().max()), r.rid
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
 def test_kv_quantizer_on_card_bit_equal_cpu(dev):
     msg = torch_card.kv_quant_mismatch(M, dev)
     assert msg is None, msg
