@@ -13,6 +13,7 @@ cycle engine.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -62,17 +63,26 @@ def stream_energy_pj(counts: np.ndarray, total_cycles: int,
                 runtime_ns=float(ns))
 
 
-def gemv_energy_summary(streams: list[np.ndarray], totals: np.ndarray,
-                        spec: SystemSpec, flops: int,
-                        params: EnergyParams = EnergyParams(),
-                        active_banks: int = 16) -> dict:
-    """Aggregate channel energies; report pJ/op for a GEMV of `flops`."""
-    per_ch = [stream_energy_pj(C.op_counts(s), int(tc), spec, params,
-                               active_banks)
-              for s, tc in zip(streams, totals)]
+def counts_energy_summary(counts: Sequence[np.ndarray], totals: np.ndarray,
+                          spec: SystemSpec, flops: int,
+                          params: EnergyParams = EnergyParams(),
+                          active_banks: int = 16) -> dict:
+    """Aggregate channel energies from each channel's opcode counts;
+    report pJ/op for a GEMV of `flops`."""
+    per_ch = [stream_energy_pj(c, int(tc), spec, params, active_banks)
+              for c, tc in zip(counts, totals)]
     total_pj = sum(d["total_pj"] for d in per_ch)
     runtime_ns = max(d["runtime_ns"] for d in per_ch)
     return dict(total_pj=total_pj,
                 pj_per_op=total_pj / max(flops, 1),
                 runtime_ns=runtime_ns,
                 channels=per_ch)
+
+
+def gemv_energy_summary(streams: list[np.ndarray], totals: np.ndarray,
+                        spec: SystemSpec, flops: int,
+                        params: EnergyParams = EnergyParams(),
+                        active_banks: int = 16) -> dict:
+    """Aggregate channel energies; report pJ/op for a GEMV of `flops`."""
+    return counts_energy_summary([C.op_counts(s) for s in streams], totals,
+                                 spec, flops, params, active_banks)

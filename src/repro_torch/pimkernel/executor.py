@@ -35,7 +35,7 @@ import numpy as np
 
 from repro_torch.core import commands as C
 from repro_torch.core import controller, device, engine, trace
-from repro_torch.core.energy import EnergyParams, gemv_energy_summary
+from repro_torch.core.energy import EnergyParams, counts_energy_summary
 from repro_torch.core.timing import DEFAULT_SYSTEM, SystemSpec, TimingCycles
 from . import codegen
 from .datamapper import DataMapper, PimLayout
@@ -205,7 +205,8 @@ class PimExecutor:
         ctx = spec_context(gs.layout.spec)
         _, totals = engine.run_streams(ctx.cyc, gs.streams,
                                        device=self.device)
-        return self._pim_result(ctx, gs, totals)
+        return self._assemble([(ctx, gs.streams, _pim_fields(gs))],
+                              [totals])[0]
 
     def run_gemv(self, H: int, W: int, dtype: PimDType,
                  fence: bool = False, reshape: bool = False,
@@ -297,8 +298,10 @@ class PimExecutor:
             keys=[p.stream_keys for p in planned],
             need_issue=False, device=self.device)
         with trace.span("executor.assemble"):
-            by_key = {p.req.key: self._finish(p, fr.totals)
-                      for p, fr in zip(planned, fleet)}
+            results = self._assemble(
+                [(p.ctx, p.streams, _fields(p)) for p in planned],
+                [fr.totals for fr in fleet])
+        by_key = {p.req.key: res for p, res in zip(planned, results)}
         return [by_key[r.key] for r in reqs]
 
     def run_functional_many(self, items: Sequence[FunctionalGemv]
@@ -324,54 +327,59 @@ class PimExecutor:
             [(ctx.cyc, gs.streams) for ctx, _l, _p, _d, gs in plans],
             keys=[gs.stream_keys for _c, _l, _p, _d, gs in plans],
             need_issue=False, device=self.device)
-        out = []
-        for (ctx, layout, program, dram, gs), fr in zip(plans, fleet):
-            y = device.execute_gemv(layout, program, dram, gs.streams,
-                                    gs.payloads)
-            out.append((y, self._pim_result(ctx, gs, fr.totals)))
-        return out
-
-    def _finish(self, p: PlannedGemv, totals: np.ndarray) -> PimResult:
-        if p.req.kind == "baseline":
-            return self._baseline_result(p.ctx, p.req, p.streams, totals,
-                                         p.weight_bytes)
-        return self._pim_result(p.ctx, p.gs, totals)
+        results = self._assemble(
+            [(ctx, gs.streams, _pim_fields(gs))
+             for ctx, _l, _p, _d, gs in plans],
+            [fr.totals for fr in fleet])
+        return [(device.execute_gemv(layout, program, dram, gs.streams,
+                                     gs.payloads), res)
+                for (_c, layout, program, dram, gs), res
+                in zip(plans, results)]
 
     # -- result assembly -------------------------------------------------
-    def _pim_result(self, ctx: SpecContext, gs: GemvStreams,
-                    totals: np.ndarray) -> PimResult:
+    def _assemble(self, parts: Sequence[tuple[SpecContext, list, dict]],
+                  totals: Sequence[np.ndarray]) -> list[PimResult]:
+        """One result per ``(ctx, streams, fields)`` part and its channel
+        totals.  Each distinct stream array is histogrammed once, by
+        identity: a baseline repeats one array over its channels, and PIM
+        channels with equal keys share theirs.  ``parts`` holds every
+        array alive, so no identity is reused meanwhile."""
+        hist: dict[int, np.ndarray] = {}
+        assembled = counted = 0
+        out = []
+        for (ctx, streams, fields), tot in zip(parts, totals):
+            counts = []
+            for s in streams:
+                c = hist.get(id(s))
+                if c is None:
+                    c = hist[id(s)] = C.op_counts(s)
+                    counted += s.shape[0]
+                counts.append(c)
+                assembled += s.shape[0]
+            out.append(self._result(ctx, counts, tot, **fields))
+        trace.count("executor.assembled_rows", assembled)
+        trace.count("executor.counted_rows", counted)
+        return out
+
+    def _result(self, ctx: SpecContext, counts: list[np.ndarray],
+                totals: np.ndarray, *, flops: int, weight_bytes: int,
+                utilization: float, split: int, active_banks: int,
+                meta: dict) -> PimResult:
         cycles = int(totals.max()) if totals.size else 0
-        counts = sum((C.op_counts(s) for s in gs.streams),
-                     np.zeros(C.NUM_OPCODES, dtype=np.int64))
-        active = max(1, int(round(16 * gs.layout.utilization)))
-        energy = gemv_energy_summary(gs.streams, totals, ctx.spec,
-                                     gs.meta["flops"], self.energy_params,
-                                     active_banks=active)
+        energy = counts_energy_summary(counts, totals, ctx.spec, flops,
+                                       self.energy_params,
+                                       active_banks=active_banks)
         return PimResult(
             cycles=cycles,
             ns=cycles * ctx.cyc.tck_ns,
-            flops=gs.meta["flops"],
-            weight_bytes=gs.meta["weight_bytes"],
-            utilization=gs.meta["utilization"],
-            split=gs.meta["split"],
+            flops=flops,
+            weight_bytes=weight_bytes,
+            utilization=utilization,
+            split=split,
             energy=energy,
-            counts=counts,
-            meta=gs.meta,
+            counts=sum(counts, np.zeros(C.NUM_OPCODES, dtype=np.int64)),
+            meta=meta,
         )
-
-    def _baseline_result(self, ctx: SpecContext, req: GemvRequest,
-                         streams: list[np.ndarray],
-                         totals: np.ndarray, total_bytes: int) -> PimResult:
-        cycles = int(totals.max()) if totals.size else 0
-        counts = sum((C.op_counts(s) for s in streams),
-                     np.zeros(C.NUM_OPCODES, dtype=np.int64))
-        energy = gemv_energy_summary(streams, totals, ctx.spec,
-                                     2 * req.H * req.W, self.energy_params)
-        return PimResult(cycles=cycles, ns=cycles * ctx.cyc.tck_ns,
-                         flops=2 * req.H * req.W,
-                         weight_bytes=total_bytes,
-                         utilization=1.0, split=1, energy=energy,
-                         counts=counts, meta=dict(kind="baseline"))
 
     # -- non-PIM baseline (Fig. 4 normalization) --------------------------
     def run_baseline(self, H: int, W: int, dtype: PimDType,
@@ -379,3 +387,22 @@ class PimExecutor:
         """Sequential weight read on a non-PIM system (all channels)."""
         return self.run_many([GemvRequest.baseline(H, W, dtype,
                                                    spec=spec)])[0]
+
+
+def _pim_fields(gs: GemvStreams) -> dict:
+    """A PIM GEMV's result fields besides its cycles, counts and energy."""
+    m = gs.meta
+    return dict(flops=m["flops"], weight_bytes=m["weight_bytes"],
+                utilization=m["utilization"], split=m["split"],
+                active_banks=max(1, int(round(16 * gs.layout.utilization))),
+                meta=m)
+
+
+def _fields(p: PlannedGemv) -> dict:
+    """A planned request's result fields (a baseline issues no MAC, so
+    its active banks are the energy model's default)."""
+    if p.req.kind == "baseline":
+        return dict(flops=2 * p.req.H * p.req.W,
+                    weight_bytes=p.weight_bytes, utilization=1.0, split=1,
+                    active_banks=16, meta=dict(kind="baseline"))
+    return _pim_fields(p.gs)

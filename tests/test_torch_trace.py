@@ -2,7 +2,8 @@
 frames as differences of process totals (worker threads included), the
 profiler's clock shared with program spans, recordings (the counts a CUDA
 graph's capture holds and each replay counts again), and the counters a
-design-point query leaves in its ``offload.plan_grid`` frame.
+design-point query leaves in its ``offload.plan_grid`` frame, result
+assembly's rows among them.
 
 Every test reads its own frames or names, so tests that ran before in the
 same process (and their spans) change nothing here."""
@@ -21,6 +22,7 @@ from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.core import engine, trace
 from repro_torch.core.timing import DEFAULT_SYSTEM
 from repro_torch.kernels import lane_scan
+from repro_torch.pimkernel.executor import PimExecutor
 from repro_torch.serving.offload import OffloadPlanner, decode_gemv_sites
 import torch_card
 
@@ -251,6 +253,32 @@ def test_plan_grid_frame_counts_the_sweep_layers(monkeypatch):
     # children of the resolve: its self time is what no child covers
     resolve = f.spans["engine.resolve_lanes"]
     assert resolve[2] >= f.span_ns("engine.dedupe")
+
+
+def test_plan_grid_frame_counts_assembled_and_counted_rows(monkeypatch):
+    cfg = smoke_config(ARCHS["granite-8b"])
+    specs = [dataclasses.replace(DEFAULT_SYSTEM, num_channels=c)
+             for c in (2, 4)]
+    planned: list = []
+    real_plan = PimExecutor.plan_many
+
+    def plan_many(self, reqs):
+        out = real_plan(self, reqs)
+        planned.extend(out)
+        return out
+
+    monkeypatch.setattr(PimExecutor, "plan_many", plan_many)
+    engine.lane_cache_reset()
+    OffloadPlanner(cfg, device="cpu").plan_grid(specs, fence=True)
+    f = _last("offload.plan_grid")
+    streams = [s for p in planned for s in p.streams]
+    distinct = {id(s): s.shape[0] for s in streams}
+    assert f.counter("executor.assembled_rows") == sum(
+        s.shape[0] for s in streams) > 0
+    assert f.counter("executor.counted_rows") == sum(distinct.values())
+    # every spec has more than one channel: baselines repeat their array
+    assert (f.counter("executor.counted_rows")
+            < f.counter("executor.assembled_rows"))
 
 
 @pytest.mark.gpu
